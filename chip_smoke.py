@@ -9,9 +9,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (nvidia-smi); fails when torch.cuda.is_available() is false;
 2. build: nvcc builds every kernel of the port from csrc/ (one process per
    source, started together); prints the seconds and the -Xptxas -v lines;
-3. kernel vs plain: the masked score + segment-max kernel against
-   score_segmax_plain on the card, N = 65,536, D = 768, Q in {1, 16, 128},
-   f32 and bf16 slabs, freed slots next to the top hits;
+3. kernel vs plain: the masked and the unmasked score + segment-max
+   kernels against their plain versions on the card, N = 65,536, D = 768,
+   Q in {1, 16, 128}, f32 and bf16 slabs, freed slots next to the top
+   hits; the attention kernel against attention_plain at every shape the
+   path gives it (reranker causal H 6 L 192, encoder H 8 L 64 / 256 / 512),
+   with a length-1 row and an all-masked row;
 4. the slice: RagEngine.create over the committed encoder, add_document for
    PDFs written here, then seeded chunks through embed_in_batches and the
    store + lexical index until more than 32,768 chunks are live (slab
@@ -21,8 +24,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    checked against the plain hybrid path on a CPU copy of the same slab,
    mask, query embeddings and lexical hits; a second engine's
    load_from_disk must give the same answers;
-5. times (CUDA events, warm-up, median of repeats): kernel, plain version
-   and library call against the bound; search latency per burst; ingest
+5. the rerank-on lanes, with RAG_TPU_FUSED_ATTN=1 and the committed
+   reranker: encoder_fused holds the encoder with the attention kernel
+   against the encoder without it (1,024 ingest chunks and a query batch,
+   cosine > 0.999); judged (reranker weight 0, unseen gate 0.35 / 0.6 /
+   0.2, threshold 0) and object (the default 0.7 / 0.3 blend) send bursts
+   of 1, 16 and 64 queries through SearchBatcher, with the launch counts
+   reset just before and read just after (attention launches = 4 x judge
+   forwards + 6 x query-encoder forwards); rerank_check replays every
+   batch with the kernel off on the card and the first batch of each lane
+   on a CPU copy; every fallback counter must stay 0;
+6. segmented_topk: the unmasked kernel's own path (bench.py's exact
+   top-k), checked against torch.topk over the full scores;
+7. times (CUDA events, warm-up, median of repeats): each kernel, its plain
+   version and a library call against the bound; search latency per
+   burst, rerank burst latency per lane and a stage breakdown; ingest
    rate; each printed as a JSON line naming the card.
 
 Every file except the kernel build goes to a temporary directory outside
@@ -33,7 +49,9 @@ the repository, removed at the end. The last line is the contract line
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -47,13 +65,24 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from rust_local_rag_tpu_torch.config import ResolvedWeights
+import rust_local_rag_tpu_torch.models.encoder as encoder_module
+from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta
 from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine
 from rust_local_rag_tpu_torch.kernels import build
+from rust_local_rag_tpu_torch.models.reranker import TransformerReranker
+from rust_local_rag_tpu_torch.models.reranker_service import RerankerService
+from rust_local_rag_tpu_torch.ops.attention import attention_plain, fused_attention
 from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
 from rust_local_rag_tpu_torch.ops.hybrid import _blend_union, hybrid_topk_packed, unpack_topk, uses_score_segmax
-from rust_local_rag_tpu_torch.ops.score_segmax import SEG, score_segmax, score_segmax_plain
+from rust_local_rag_tpu_torch.ops.score_segmax import (
+    SEG,
+    fused_score_segmax,
+    fused_score_segmax_plain,
+    score_segmax,
+    score_segmax_plain,
+    segmented_topk,
+)
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher
 from rust_local_rag_tpu_torch.utils.rwlock import RwLock
 
@@ -61,14 +90,37 @@ N_SLAB = 65536
 DIM = 768
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12    # bf16 tensor cores, dense, H100 SXM data sheet
 # Scores are dots of unit vectors summed in f32 in different orders by the
 # kernel and by the plain version; each is within D * 2^-24 * |q| |c| of
 # the exact value, so they differ by at most 2 * 768 * 2^-24 = 9.2e-5.
 SCORE_TOL = 1e-4
 KERNEL_SOURCE = "rust_local_rag_tpu_torch/csrc/score_segmax.cu"
 KERNEL_REPLACES = "rust_local_rag_tpu/ops/pallas_topk.py:245"
+UNMASKED_REPLACES = "rust_local_rag_tpu/ops/pallas_topk.py:117"
+ATTN_SOURCE = "rust_local_rag_tpu_torch/csrc/attention.cu"
+ATTN_REPLACES = "rust_local_rag_tpu/ops/attention.py:105"
 BURSTS = (1, 16, 64)
 TOP_K = 10
+# bf16 outputs: the kernel and attention_plain sum the same exact bf16
+# products in f32 in other orders and round p and the output to bf16; one
+# bf16 ulp at |x| ~ 2 is 1.6e-2 (the bound tests/test_attention.py uses)
+ATTN_TOL = 2e-2
+# attention at the path's shapes: (B, H, L, causal). The reranker sees
+# bucket_batch(prompts) rows at L 192 (16 / 32 for one query, 256 / 512 for
+# 16 queries in the judged / object lane); the query encoder 1 or 16 rows
+# at L 64; ingest (encoder_fused only) 128 rows at L 256 and 512.
+ATTN_SHAPES = [(16, 6, 192, True), (32, 6, 192, True), (256, 6, 192, True), (512, 6, 192, True),
+               (1, 8, 64, False), (16, 8, 64, False), (128, 8, 256, False), (128, 8, 512, False)]
+ATTN_MAIN = (256, 6, 192, True)  # the judged lane's 16-query batch
+# rerank-on lanes: the quality configuration (eval_harness/configs/baseline.yaml)
+JUDGED_WEIGHTS = QueryWeights(reranker=0.0, initial=1.0)
+JUDGED_GATE = {"rejection_threshold": 0.0, "rejection_unseen_mass": 0.35, "rejection_unseen_cos": 0.6,
+               "rejection_unseen_judge": 0.2}
+# the judge with the kernel against the judge without it (or on the CPU):
+# bf16 rounded at other places through 4 layers
+LOGPROB_TOL = 0.1
+RR_TOL = 0.02
 
 WORDS = """
 pump valve pressure flow sensor motor bearing seal shaft impeller housing
@@ -295,6 +347,58 @@ def plain_reference(pending, corpus_cpu, mask_cpu) -> list:
     return rows
 
 
+def check_unmasked(queries, corpus) -> float:
+    """The unmasked kernel against its plain version; the max |diff|."""
+    scores, segmax = fused_score_segmax(queries, corpus)
+    p_scores, p_segmax = fused_score_segmax_plain(queries, corpus)
+    torch.cuda.synchronize()
+    q = queries.shape[0]
+    if tuple(scores.shape) != (q, N_SLAB) or tuple(segmax.shape) != (q, N_SLAB // SEG):
+        raise AssertionError(f"unmasked kernel shapes {tuple(scores.shape)} {tuple(segmax.shape)}")
+    if not torch.isfinite(scores).all():
+        raise AssertionError("unmasked kernel: non-finite scores")
+    if not torch.equal(segmax, scores.view(q, -1, SEG).amax(dim=2)):
+        raise AssertionError("unmasked kernel: segmax is not the max of its own scores")
+    err = max(float((scores - p_scores).abs().max()), float((segmax - p_segmax).abs().max()))
+    if not err <= SCORE_TOL:
+        raise AssertionError(f"unmasked kernel vs plain: max |diff| {err} > {SCORE_TOL}")
+    return err
+
+
+def attention_case(seed: int, b: int, h: int, l: int, device):
+    """q, k, v ~ N(0, 1) in bf16 and random key lengths: row 0 has one
+    valid key, the last row none (the finite bias makes it uniform)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, l, 64, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+    lens = torch.randint(1, l + 1, (b,), generator=gen, device=device)
+    lens[0] = 1
+    lens[-1] = 0
+    mask = (torch.arange(l, device=device)[None, :] < lens[:, None]).to(torch.int32)
+    return q, k, v, mask
+
+
+def check_attention(q, k, v, mask, causal: bool) -> float:
+    """The kernel against attention_plain on the same inputs; with v read
+    through the transposed view the models pass, and k through rows padded
+    to 66 values (the kernel's 4-byte load path) it must give the same
+    bits. Returns the max |diff|."""
+    out = fused_attention(q, k, v, mask, causal)
+    ref = attention_plain(q, k, v, mask, causal)
+    strided = fused_attention(q, k, v.transpose(1, 2).contiguous().transpose(1, 2), mask, causal)
+    padded = torch.zeros(*k.shape[:3], 66, dtype=k.dtype, device=k.device)
+    padded[..., :64] = k
+    unaligned = fused_attention(q, padded[..., :64], v, mask, causal)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("attention kernel: non-finite output")
+    if not (torch.equal(out, strided) and torch.equal(out, unaligned)):
+        raise AssertionError("attention kernel: strided or padded inputs give another result")
+    err = float((out.float() - ref.float()).abs().max())
+    if not torch.allclose(out.float(), ref.float(), atol=ATTN_TOL, rtol=ATTN_TOL):
+        raise AssertionError(f"attention kernel vs plain: max |diff| {err} beyond atol = rtol = {ATTN_TOL}")
+    return err
+
+
 # --------------------------------------------------------------- timing ----
 
 
@@ -330,6 +434,39 @@ def library_call(queries, corpus, mask):
     scores = torch.mm(queries, corpus.float().t())
     scores.masked_fill_(neg[None, :], float("-inf"))
     return scores, scores.view(queries.shape[0], -1, SEG).amax(dim=2)
+
+
+def unmasked_bound(q: int, corpus_itemsize: int):
+    """As bound() without the mask read."""
+    nbytes = N_SLAB * DIM * corpus_itemsize + q * DIM * 4 + q * N_SLAB * 4 + q * (N_SLAB // SEG) * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * q * N_SLAB * DIM / H100_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_unmasked(queries, corpus):
+    scores = torch.mm(queries, corpus.float().t())
+    return scores, scores.view(queries.shape[0], -1, SEG).amax(dim=2)
+
+
+def attention_bound(b: int, h: int, l: int):
+    """(bound_ms, bound_by): q, k, v read and the output written once in
+    bf16 plus the int32 mask, against the memory rate; 4*B*H*L^2*Dh
+    operations (QK^T and PV) against the bf16 tensor-core rate."""
+    t_bytes = (4 * b * h * l * 64 * 2 + b * l * 4) / H100_BYTES_PER_S * 1e3
+    t_ops = 4 * b * h * l * l * 64 / H100_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bias(mask, causal: bool):
+    """The kernel's finite float bias as an attn_mask for
+    scaled_dot_product_attention, the library call timed beside it."""
+    l = mask.shape[1]
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    if causal:
+        pos = torch.arange(l, device=mask.device)
+        bias = bias + torch.where(pos[None, :] > pos[:, None], -1e9, 0.0)
+    return bias
 
 
 def stage_breakdown(engine, rng, probs, q: int = 16, reps: int = 5) -> dict:
@@ -396,6 +533,393 @@ def stage_breakdown(engine, rng, probs, q: int = 16, reps: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------- rerank lanes ----
+
+
+def counting(fn, counts: dict, key: str):
+    def wrapped(*a, **kw):
+        counts[key] += 1
+        return fn(*a, **kw)
+    return wrapped
+
+
+def check_fallbacks(engine, batcher, what: str) -> None:
+    counters = {"batcher.judged_fallbacks": batcher.judged_fallbacks,
+                "engine.rerank_fallbacks": engine.rerank_fallbacks,
+                "reranker.fallbacks": engine.reranker.fallbacks}
+    if any(counters.values()):
+        raise AssertionError(f"{what}: a fallback was taken {counters}")
+
+
+def encoder_fused_check(engine, rng, probs) -> dict:
+    """1,024 ingest chunks (length-sorted batches of 128) and one 16-query
+    batch through the encoder with the attention kernel and without it;
+    every row's cosine must exceed 0.999."""
+    model = engine.embedding_service._model
+    depth = model.encoder.cfg.depth
+    texts = sorted(chunk_texts(rng, 1024, probs), key=len)
+    batches = [
+        tuple(torch.from_numpy(x).to(engine.device) for x in model.tokenizer.encode_batch(texts[i : i + 128]))
+        for i in range(0, 1024, 128)
+    ]
+    out, times = {}, {}
+    fused_attention.launches = 0
+    with torch.inference_mode():
+        for fused in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[fused] = torch.cat([model.encoder(ids, m, fused_attn=fused) for ids, m in batches])
+            torch.cuda.synchronize()
+            times[fused] = time.perf_counter() - t0
+    chunk_launches = fused_attention.launches
+    if chunk_launches != depth * len(batches):
+        raise AssertionError(f"encoder_fused: {chunk_launches} launches for {len(batches)} batches")
+    cos_chunks = (out[True] * out[False]).sum(dim=1)
+    qs = queries_for(rng, 16, probs)
+    q_out = {}
+    for flag in ("1", "0"):
+        os.environ["RAG_TPU_FUSED_ATTN"] = flag
+        q_out[flag] = model.encode_queries_device(qs)[: len(qs)]
+    os.environ.pop("RAG_TPU_FUSED_ATTN")
+    cos_q = (q_out["1"] * q_out["0"]).sum(dim=1)
+    worst = min(float(cos_chunks.min()), float(cos_q.min()))
+    if not worst > 0.999:
+        raise AssertionError(f"encoder_fused: cosine {worst} <= 0.999 between the kernel and plain encoders")
+    return {"encoder_fused_min_cos_chunks": float(cos_chunks.min()), "encoder_fused_min_cos_queries": float(cos_q.min()),
+            "ingest1024_encoder_fused_s": times[True], "ingest1024_encoder_plain_s": times[False],
+            "encoder_fused_launches": chunk_launches + depth}
+
+
+def judged_rows(jc, pre_slots, qi: int) -> tuple:
+    """({slot: (initial, emb, lex, rr, yes, no)} over the pre-gate head,
+    rejected?) for one query of a judged batch."""
+    col = jc.col
+    rows = {}
+    for rank, slot in enumerate(pre_slots[qi].tolist()):
+        if slot >= 0 and np.isfinite(col.vals[qi, rank]):
+            rows[slot] = (float(col.vals[qi, rank]), float(col.emb[qi, rank]), float(col.lex[qi, rank]),
+                          float(jc.rr[qi, rank]), float(jc.yes[qi, rank]), float(jc.no[qi, rank]))
+    rejected = bool(rows) and bool((col.slots[qi] < 0).all())
+    return rows, rejected
+
+
+def compare_judge(a, b, what: str, worst: dict) -> None:
+    """(rr, yes, no) of one row, kernel side a against plain side b; the
+    largest differences seen go to `worst`."""
+    worst["rr"] = max(worst["rr"], abs(a[0] - b[0]))
+    worst["logprob"] = max(worst["logprob"], abs(a[1] - b[1]), abs(a[2] - b[2]))
+    if abs(a[0] - b[0]) > RR_TOL or abs(a[1] - b[1]) > LOGPROB_TOL or abs(a[2] - b[2]) > LOGPROB_TOL:
+        raise AssertionError(f"{what}: judge (rr, yes, no) {a} vs {b} beyond {RR_TOL} / {LOGPROB_TOL}")
+
+
+def compare_judged(rec: dict, pre_b, jc_b, exact: bool, near: list, worst: dict, what: str) -> None:
+    """A judged batch of the kernel run (rec) against its replay (jc_b,
+    with the kernel off on the card or on the CPU copy): first-stage
+    planes identical on the card (within SCORE_TOL on the CPU), judge
+    outputs within RR_TOL / LOGPROB_TOL, and the same gate decisions and
+    sets, except where the plain best yes-probability lies within RR_TOL
+    of the judge-rescue threshold (recorded in `near`)."""
+    jc_a, pre_a = rec["jc"], rec["pre_slots"]
+    nq = len(rec["queries"])
+    if exact:
+        for name in ("vals", "emb", "lex"):
+            if not np.array_equal(getattr(jc_a.col, name)[:nq], getattr(jc_b.col, name)[:nq]):
+                raise AssertionError(f"{what}: first-stage plane {name} differs")
+        if not np.array_equal(pre_a[:nq], pre_b[:nq]):
+            raise AssertionError(f"{what}: first-stage slots differ")
+    judge_t = JUDGED_GATE["rejection_unseen_judge"]
+    for qi, q in enumerate(rec["queries"]):
+        ra, rej_a = judged_rows(jc_a, pre_a, qi)
+        rb, rej_b = judged_rows(jc_b, pre_b, qi)
+        same_topk([(k, *v[:3]) for k, v in ra.items()], [(k, *v[:3]) for k, v in rb.items()],
+                  0.0 if exact else SCORE_TOL, f"{what} {q!r} first stage")
+        for slot in set(ra) & set(rb):
+            if np.isfinite(ra[slot][3]) or np.isfinite(rb[slot][3]):
+                compare_judge(ra[slot][3:], rb[slot][3:], f"{what} {q!r} slot {slot}", worst)
+        if rej_a != rej_b:
+            best = max((v[3] for v in rb.values()), default=float("-inf"))
+            if abs(best - judge_t) > RR_TOL:
+                raise AssertionError(f"{what} {q!r}: gate {rej_a} vs {rej_b}, plain best yes-p {best}")
+            near.append({"lane": "judged", "check": what, "query": q, "kind": "gate",
+                         "plain_value": best, "threshold": judge_t})
+
+
+def compare_object(res_a, res_b, queries, exact: bool, near: list, worst: dict, what: str) -> None:
+    """Object-lane results of the kernel run against the replay: the
+    first-stage scores of common rows identical on the card (within
+    SCORE_TOL on the CPU), judge outputs within RR_TOL / LOGPROB_TOL, and
+    the same top-k sets except where a row's plain blended score lies
+    within the blend's tolerance of the k-th one (recorded in `near`).
+    With rr within RR_TOL, rr / max(rr) moves by at most 2 RR_TOL / max(rr),
+    so the blend by 0.7 times that (plus the initial side's 0.3 times
+    2 SCORE_TOL / max(initial) on the CPU)."""
+    for q, a, b in zip(queries, res_a, res_b):
+        if len(a) != len(b) or (a and any(r.reranker_score is None for r in a + b)):
+            raise AssertionError(f"{what} {q!r}: {len(a)} vs {len(b)} results, or an unjudged row")
+        if not a:
+            continue
+        max_rr = max(r.reranker_score for r in b)
+        max_init = max(r.initial_score for r in b)
+        band = 0.7 * 2 * RR_TOL / max(max_rr, 1e-6)
+        if not exact:
+            band += 0.3 * 2 * SCORE_TOL / max(max_init, 1e-6)
+        ga, gb = {r.chunk_id: r for r in a}, {r.chunk_id: r for r in b}
+        for cid in set(ga) & set(gb):
+            x, y = ga[cid], gb[cid]
+            first = [abs(x.initial_score - y.initial_score), abs(x.embedding_score - y.embedding_score),
+                     abs(x.lexical_score - y.lexical_score)]
+            if max(first) > (0.0 if exact else SCORE_TOL):
+                raise AssertionError(f"{what} {q!r} {cid}: first-stage scores differ by {max(first)}")
+            compare_judge((x.reranker_score, x.yes_logprob, x.no_logprob),
+                          (y.reranker_score, y.yes_logprob, y.no_logprob), f"{what} {q!r} {cid}", worst)
+            if abs(x.score - y.score) > band:
+                raise AssertionError(f"{what} {q!r} {cid}: blended {x.score} vs {y.score}, band {band}")
+        for side, rows in (("kernel", ga), ("plain", gb)):
+            kth = min(r.score for r in rows.values())
+            for cid in set(rows) - (set(gb) if side == "kernel" else set(ga)):
+                if rows[cid].score - kth > band:
+                    raise AssertionError(f"{what} {q!r}: {cid} only on the {side} side, above the band")
+                near.append({"lane": "object", "check": what, "query": q, "kind": "topk", "side": side,
+                             "value": rows[cid].score, "kth": kth, "band": band})
+
+
+def cpu_copy(engine, tmp: str):
+    """The engine's slab, mask, metadata and lexical index on a CPU engine
+    with its own reranker loaded on the CPU (the same committed weights)."""
+    store = copy.copy(engine.store)
+    store._emb = engine.store.corpus().cpu()
+    store._mask = engine.store.valid_mask().cpu()
+    store.device = torch.device("cpu")
+    judge = TransformerReranker.from_assets(device="cpu")
+    cpu = RagEngine(os.path.join(tmp, "cpu_copy"), engine.embedding_service, RerankerService(judge), device="cpu")
+    cpu.store, cpu.lexical_index = store, engine.lexical_index
+    return cpu
+
+
+def judged_pass(engine, queries):
+    """The judged lane's engine calls, as SearchBatcher makes them."""
+    pending = engine.dispatch_search(queries, TOP_K, JUDGED_WEIGHTS, rejection_threshold=0.0,
+                                     rejection_cosine_floor=0.0)
+    pj = engine.judge_columnar(pending, queries, weights=JUDGED_WEIGHTS, **JUDGED_GATE)
+    pre = pj.col.slots.copy()
+    return pre, engine.fetch_judged(pj)
+
+
+def rerank_stages(engine, rng, probs, lane: str, q: int = 16, reps: int = 3) -> dict:
+    """Median ms of the stages of one q-query batch of a lane, each ended
+    by a synchronise: first stage (query encoder, BM25, hybrid), prompt
+    build, head/tail tokenising, judge forward (host wall and CUDA
+    events), and the rest (fetch, gate, blend, results)."""
+    judge = engine.reranker._model
+    t = {}
+
+    def timed(obj, name: str, key: str, sync: bool = False):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **kw):
+            if sync:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                ev[1].record()
+                torch.cuda.synchronize()
+                t[key + "_device"] += ev[0].elapsed_time(ev[1]) / 1e3
+            t[key] += time.perf_counter() - t0
+            return out
+        setattr(obj, name, wrapped)
+
+    timed(engine, "_dispatch", "first_stage", sync=True)
+    timed(engine.reranker, "build_prompt", "prompt_build")
+    timed(judge, "encode", "tokenise")
+    timed(judge.model, "forward_last_logits", "judge_forward", sync=True)
+    stages = {}
+    try:
+        for rep in range(reps + 1):
+            qs = queries_for(rng, q, probs)
+            for k in ("first_stage", "first_stage_device", "prompt_build", "tokenise", "judge_forward",
+                      "judge_forward_device"):
+                t[k] = 0.0
+            t0 = time.perf_counter()
+            if lane == "judged":
+                _, jc = judged_pass(engine, qs)
+                [engine.results_from_judged(jc, qi) for qi in range(q)]
+            else:
+                engine.search_batch(qs, TOP_K, None)
+            total = time.perf_counter() - t0
+            row = {"first_stage": t["first_stage"], "prompt_build": t["prompt_build"], "tokenise": t["tokenise"],
+                   "judge_forward": t["judge_forward"], "judge_forward_device": t["judge_forward_device"],
+                   "rest": total - t["first_stage"] - t["prompt_build"] - t["tokenise"] - t["judge_forward"],
+                   "total": total}
+            if rep:  # the first batch is a warm-up
+                for k, v in row.items():
+                    stages.setdefault(k, []).append(v)
+    finally:
+        for obj, name in ((engine, "_dispatch"), (engine.reranker, "build_prompt"), (judge, "encode"),
+                          (judge.model, "forward_last_logits")):
+            delattr(obj, name)
+    return {f"{lane}_batch{q}_{k}_ms": statistics.median(v) * 1e3 for k, v in stages.items()}
+
+
+def run_rerank(engine, batcher, dev, card: str, seconds: dict, rng, probs, tmp: str) -> dict:
+    """The rerank-on lanes with the attention kernel (RAG_TPU_FUSED_ATTN=1)."""
+    encoder = engine.embedding_service._model.encoder
+    judge = engine.reranker._model
+    with phase("encoder_fused", card, seconds):
+        log({**encoder_fused_check(engine, rng, probs), "card": card})
+
+    os.environ["RAG_TPU_FUSED_ATTN"] = "1"
+    shapes = set()
+    plain_fa = encoder_module.fused_attention
+
+    def recording_fa(q, k, v, mask, causal=False):
+        shapes.add((q.shape[0], q.shape[1], q.shape[2], bool(causal)))
+        return plain_fa(q, k, v, mask, causal=causal)
+
+    forwards = {"encoder": 0, "judge": 0}
+    q_embs, judged_batches, object_batches = {}, [], []
+    prep, judge_columnar, fetch_judged = engine._prep_queries, engine.judge_columnar, engine.fetch_judged
+    general = engine.search_with_diversity_batch
+
+    def recording_prep(queries, nq_pad):
+        out = prep(queries, nq_pad)
+        q_embs[tuple(queries)] = out
+        return out
+
+    def recording_judge(pending, queries, **kw):
+        pj = judge_columnar(pending, queries, **kw)
+        judged_batches.append({"queries": list(queries), "pre_slots": pj.col.slots.copy(), "pj": pj})
+        return pj
+
+    def recording_fetch(pj):
+        jc = fetch_judged(pj)
+        next(b for b in judged_batches if b["pj"] is pj)["jc"] = jc
+        return jc
+
+    def recording_general(queries, top_k, diversity, weights=None, **kw):
+        res = general(queries, top_k, diversity, weights, **kw)
+        object_batches.append({"queries": list(queries), "results": res})
+        return res
+
+    encoder_module.fused_attention = recording_fa
+    encoder.forward = counting(encoder.forward, forwards, "encoder")
+    judge.model.forward_last_logits = counting(judge.model.forward_last_logits, forwards, "judge")
+    engine._prep_queries = recording_prep
+    engine.judge_columnar, engine.fetch_judged = recording_judge, recording_fetch
+    engine.search_with_diversity_batch = recording_general
+    lanes = {"judged": (JUDGED_WEIGHTS, JUDGED_GATE), "object": (None, {})}
+    out = {"launches": {}, "latency": {}}
+    try:
+        for lane, (weights, gate) in lanes.items():
+            with phase(lane, card, seconds):
+                bursts = {b: queries_for(rng, b, probs) for b in BURSTS}
+                if lane == "judged":  # one off-corpus query a burst, for the unseen-term gate
+                    for b in BURSTS:
+                        bursts[b][-1] = f"zebra xylophone quasar nebula sonnet q{b}"
+                n_j, n_o = len(judged_batches), len(object_batches)
+                forwards.update(encoder=0, judge=0)
+                fused_attention.launches = 0
+                score_segmax.launches = 0
+                answers = {}
+                for b in BURSTS:
+                    futs = [batcher.submit(q, TOP_K, 0.0, weights, **gate) for q in bursts[b]]
+                    for q, f in zip(bursts[b], futs):
+                        answers[q] = f.result(timeout=600)
+                launches, masked, fw = fused_attention.launches, score_segmax.launches, dict(forwards)
+                want = judge.cfg.depth * fw["judge"] + encoder.cfg.depth * fw["encoder"]
+                routed = (len(judged_batches) - n_j, len(object_batches) - n_o)
+                out["launches"][lane] = {"fused_attention": launches, "judge_forwards": fw["judge"],
+                                         "query_encoder_forwards": fw["encoder"], "score_segmax_masked": masked,
+                                         "judged_batches": routed[0], "object_batches": routed[1]}
+                log({"lane": lane, **out["launches"][lane], "attention_shapes": sorted(shapes)})
+                if launches == 0 or launches != want:
+                    raise AssertionError(f"{lane}: {launches} attention launches, want {want} = "
+                                         f"{judge.cfg.depth} x {fw['judge']} + {encoder.cfg.depth} x {fw['encoder']}")
+                if (routed[0] > 0, routed[1] > 0) != (lane == "judged", lane == "object") or masked == 0:
+                    raise AssertionError(f"{lane}: batches went to (judged, object) lanes {routed}, "
+                                         f"{masked} first-stage kernel launches")
+                for q, res in answers.items():
+                    if len(res) not in (0, TOP_K) or any(r.reranker_score is None for r in res):
+                        raise AssertionError(f"{lane} {q!r}: {len(res)} results or an unjudged row")
+                if not any(answers.values()):
+                    raise AssertionError(f"{lane}: every query was rejected")
+                log({"lane": lane, "queries": len(answers), "rejected": sum(not r for r in answers.values())})
+                if lane == "judged":  # the gate's three signals for the off-corpus queries
+                    for q in (bursts[b][-1] for b in BURSTS):
+                        log({"off_corpus_query": q, "unseen_mass": engine.lexical_index.unseen_mass(q),
+                             "best_cosine": max((r.embedding_score for r in answers[q]), default=None),
+                             "best_judge_yes_p": max((r.reranker_score for r in answers[q]), default=None),
+                             "rejected": not answers[q]})
+                check_fallbacks(engine, batcher, lane)
+    finally:
+        encoder_module.fused_attention = plain_fa
+        for obj, name in ((encoder, "forward"), (judge.model, "forward_last_logits"), (engine, "_prep_queries"),
+                          (engine, "judge_columnar"), (engine, "fetch_judged"),
+                          (engine, "search_with_diversity_batch")):
+            delattr(obj, name)
+
+    with phase("rerank_check", card, seconds):
+        # a burst the batcher split otherwise gives shapes beyond ATTN_SHAPES
+        for i, (b, h, l, causal) in enumerate(sorted(shapes - set(ATTN_SHAPES))):
+            err = check_attention(*attention_case(1000 + i, b, h, l, dev), causal)
+            log({"kernel_check": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
+                 "max_abs_err": err, "tol": ATTN_TOL, "card": card})
+        near: list = []
+        worst = {"card": {"rr": 0.0, "logprob": 0.0}, "cpu": {"rr": 0.0, "logprob": 0.0}}
+        engine._prep_queries = lambda queries, nq_pad: q_embs[tuple(queries)]
+        os.environ["RAG_TPU_FUSED_ATTN"] = "0"
+        try:
+            for i, rec in enumerate(judged_batches):
+                pre, jc = judged_pass(engine, rec["queries"])
+                compare_judged(rec, pre, jc, True, near, worst["card"], f"judged batch {i}, kernel off")
+            for i, rec in enumerate(object_batches):
+                compare_object(rec["results"], engine.search_batch(rec["queries"], TOP_K, None), rec["queries"],
+                               True, near, worst["card"], f"object batch {i}, kernel off")
+            check_fallbacks(engine, batcher, "kernel-off replay")
+            cpu = cpu_copy(engine, tmp)
+            cpu._prep_queries = lambda queries, nq_pad: q_embs[tuple(queries)].cpu()
+            os.environ["RAG_TPU_FUSED_ATTN"] = "1"
+            rec = judged_batches[0]
+            pre, jc = judged_pass(cpu, rec["queries"])
+            compare_judged(rec, pre, jc, False, near, worst["cpu"], "judged batch 0, CPU copy")
+            rec = object_batches[0]
+            compare_object(rec["results"], cpu.search_batch(rec["queries"], TOP_K, None), rec["queries"],
+                           False, near, worst["cpu"], "object batch 0, CPU copy")
+            if cpu.rerank_fallbacks or cpu.reranker.fallbacks:
+                raise AssertionError("CPU copy: a fallback was taken")
+        finally:
+            del engine._prep_queries
+        log({"rerank_checked_batches": {"judged": len(judged_batches), "object": len(object_batches)},
+             "cpu_copy_batches": {"judged": 1, "object": 1}})
+        log({"judge_max_diff_vs_kernel_off": worst["card"], "judge_max_diff_vs_cpu_copy": worst["cpu"],
+             "tol": {"rr": RR_TOL, "logprob": LOGPROB_TOL}})
+        log({"near_tolerance_cases": near, "count": len(near)})
+
+    with phase("rerank_latency", card, seconds):
+        for lane, (weights, gate) in lanes.items():
+            out["latency"][lane] = {}
+            for b in BURSTS:
+                lat = []
+                for rep in range(6):
+                    qs = queries_for(rng, b, probs)
+                    t0 = time.perf_counter()
+                    futs = [batcher.submit(q, TOP_K, 0.0, weights, **gate) for q in qs]
+                    for f in futs:
+                        f.result(timeout=600)
+                    if rep:  # the first burst of a size is a warm-up
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                out["latency"][lane][b] = lat
+        check_fallbacks(engine, batcher, "rerank_latency")
+
+    with phase("rerank_breakdown", card, seconds):
+        for lane in lanes:
+            log({**rerank_stages(engine, rng, probs, lane), "card": card})
+        check_fallbacks(engine, batcher, "rerank_breakdown")
+    os.environ.pop("RAG_TPU_FUSED_ATTN")
+    return out
+
+
 # ----------------------------------------------------------------- main ----
 
 
@@ -427,14 +951,24 @@ def main(argv=None) -> int:
                 if line.strip():
                     log(f"ptxas| {line}")
 
-    max_err = 0.0
+    max_err = max_err_unmasked = max_err_attn = 0.0
     with phase("kernel_vs_plain", card, seconds):
         for dtype in (torch.float32, torch.bfloat16):
             for q in (1, 16, 128):
-                err = check_kernel(*kernel_case(args.seed, q, dtype, dev))
+                queries, corpus, mask = kernel_case(args.seed, q, dtype, dev)
+                err = check_kernel(queries, corpus, mask)
                 max_err = max(max_err, err)
                 log({"kernel_check": "score_segmax_masked", "dtype": str(dtype), "Q": q,
                      "N": N_SLAB, "D": DIM, "max_abs_err": err, "tol": SCORE_TOL, "card": card})
+                err = check_unmasked(queries, corpus)
+                max_err_unmasked = max(max_err_unmasked, err)
+                log({"kernel_check": "fused_score_segmax", "dtype": str(dtype), "Q": q,
+                     "N": N_SLAB, "D": DIM, "max_abs_err": err, "tol": SCORE_TOL, "card": card})
+        for i, (b, h, l, causal) in enumerate(ATTN_SHAPES):
+            err = check_attention(*attention_case(args.seed + i, b, h, l, dev), causal)
+            max_err_attn = max(max_err_attn, err)
+            log({"kernel_check": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
+                 "max_abs_err": err, "tol": ATTN_TOL, "card": card})
         torch.cuda.synchronize()
 
     tmp = tempfile.mkdtemp(prefix="rag_port_smoke_")
@@ -442,6 +976,25 @@ def main(argv=None) -> int:
         result = run_slice(args, dev, card, seconds, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    with phase("segmented_topk", card, seconds):
+        # bench.py's exact top-k (pallas_segmented_topk there): the unmasked
+        # kernel, then the segmented selection, against torch.topk over
+        # the full plain scores
+        fused_score_segmax.launches = 0
+        for q in (1, 16, 128):
+            queries, corpus, _ = kernel_case(args.seed + 1, q, torch.float32, dev)
+            vals, idx = segmented_topk(queries, corpus, TOP_K)
+            fv, fi = torch.topk(fused_score_segmax_plain(queries, corpus)[0], TOP_K, dim=1)
+            torch.cuda.synchronize()
+            for r in range(q):
+                got = [(int(i), float(v)) for i, v in zip(idx[r].tolist(), vals[r].tolist())]
+                want = [(int(i), float(v)) for i, v in zip(fi[r].tolist(), fv[r].tolist())]
+                same_topk(got, want, SCORE_TOL, f"segmented_topk Q{q} row {r}")
+        topk_launches = fused_score_segmax.launches
+        log({"launches": {"fused_score_segmax": topk_launches}, "segmented_topk_checked": [1, 16, 128]})
+        if topk_launches != 3:
+            raise AssertionError(f"segmented_topk launched the unmasked kernel {topk_launches} times, want 3")
 
     with phase("times", card, seconds):
         main_path = None
@@ -458,10 +1011,40 @@ def main(argv=None) -> int:
                 log(row)
                 if dtype == torch.float32 and q == result["main_q"]:
                     main_path = row
+                ms = cuda_ms(lambda: fused_score_segmax(qs, corpus))
+                plain_ms = cuda_ms(lambda: fused_score_segmax_plain(qs, corpus))
+                library_ms = cuda_ms(lambda: library_unmasked(qs, corpus))
+                b_ms, b_by = unmasked_bound(q, corpus.element_size())
+                row = {"kernel_time": "fused_score_segmax", "dtype": str(dtype), "Q": q, "N": N_SLAB,
+                       "D": DIM, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "card": card}
+                log(row)
+                if dtype == torch.float32 and q == 16:
+                    unmasked_main = row
+        for i, (b, h, l, causal) in enumerate(ATTN_SHAPES):
+            q_, k_, v_, m_ = attention_case(args.seed + i, b, h, l, dev)
+            bias = attention_bias(m_, causal).to(torch.bfloat16)
+            ms = cuda_ms(lambda: fused_attention(q_, k_, v_, m_, causal))
+            plain_ms = cuda_ms(lambda: attention_plain(q_, k_, v_, m_, causal))
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias))
+            b_ms, b_by = attention_bound(b, h, l)
+            row = {"kernel_time": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "card": card}
+            log(row)
+            if (b, h, l, causal) == ATTN_MAIN:
+                attn_main = row
+            del q_, k_, v_, m_, bias
         for burst, lat in result["latency"].items():
             log({"search_burst": burst, "top_k": TOP_K, "median_ms": statistics.median(lat),
                  "min_ms": min(lat), "max_ms": max(lat), "reps": len(lat), "card": card})
         log({**result["ingest"], "card": card})
+        rr = result["rerank"]
+        for lane, bursts in rr["latency"].items():
+            for burst, lat in bursts.items():
+                log({"rerank_burst": burst, "lane": lane, "top_k": TOP_K, "median_ms": statistics.median(lat),
+                     "min_ms": min(lat), "max_ms": max(lat), "reps": len(lat), "card": card})
+        log({"rerank_launches": rr["launches"], "card": card})
     log({"phase_seconds": seconds, "card": card})
 
     log({"kernels": [{
@@ -476,6 +1059,30 @@ def main(argv=None) -> int:
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
         "library_ms": main_path["library_ms"],
+    }, {
+        "name": "fused_attention",
+        "route": "cuda",
+        "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES,
+        "launches": sum(x["fused_attention"] for x in rr["launches"].values()),
+        "max_abs_err": max_err_attn,
+        "ms": attn_main["ms"],
+        "plain_ms": attn_main["plain_ms"],
+        "bound_ms": attn_main["bound_ms"],
+        "bound_by": attn_main["bound_by"],
+        "library_ms": attn_main["library_ms"],
+    }, {
+        "name": "fused_score_segmax",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": UNMASKED_REPLACES,
+        "launches": topk_launches,
+        "max_abs_err": max_err_unmasked,
+        "ms": unmasked_main["ms"],
+        "plain_ms": unmasked_main["plain_ms"],
+        "bound_ms": unmasked_main["bound_ms"],
+        "bound_by": unmasked_main["bound_by"],
+        "library_ms": unmasked_main["library_ms"],
     }]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -491,7 +1098,10 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
 
     with phase("ingest", card, seconds):
         t0 = time.perf_counter()
-        engine = RagEngine.create(tmp, device=dev)
+        reranker = RerankerService(TransformerReranker.from_assets(device=dev))
+        t_reranker = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = RagEngine.create(tmp, device=dev, reranker=reranker)
         t_create = time.perf_counter() - t0
         n_pdf = 0
         for name, data in documents(rng, probs).items():
@@ -521,7 +1131,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
         if not np.isfinite(embs).all() or embs.shape != (args.extra_chunks, DIM):
             raise AssertionError("embeddings are not finite [n, 768]")
         ingest = {"ingest_chunks": len(texts), "pdf_chunks": n_pdf, "live_chunks": live,
-                  "create_s": t_create, "embed_s": t_embed, "embed_chunks_per_s": len(texts) / t_embed,
+                  "reranker_load_s": t_reranker, "create_s": t_create, "embed_s": t_embed, "embed_chunks_per_s": len(texts) / t_embed,
                   "store_and_bm25_s": t_add, "save_s": t_save,
                   "ingest_chunks_per_s": len(texts) / (t_embed + t_add)}
         log(ingest)
@@ -593,13 +1203,15 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
         with phase("breakdown", card, seconds):
             breakdown = stage_breakdown(engine, rng, probs)
             log({**breakdown, "card": card})
+
+        rerank = run_rerank(engine, batcher, dev, card, seconds, rng, probs, tmp)
     finally:
         batcher.stop()
         engine.embedding_service.close()
     # the query batch the kernel saw most often on the main path
     padded = [p.out.shape[0] for _, p in recorded]
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
-            "main_q": max(set(padded), key=padded.count)}
+            "main_q": max(set(padded), key=padded.count), "rerank": rerank}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
-"""Scoring weights and ingest batch knobs read from the environment.
+"""Scoring weights, model names and ingest batch knobs read from the
+environment.
 
-Copy of the parts of rust_local_rag_tpu/config.py that the search and
-ingest path reads, under the same environment variable names: four scoring
-weights validated to be finite and in [0, 1] and cached after first read,
-MAX_TOP_K, and the embedding batch size, cooldown and timeout.
+Copy of the parts of rust_local_rag_tpu/config.py that the search, rerank
+and ingest path reads, under the same environment variable names: four
+scoring weights validated to be finite and in [0, 1] and cached after
+first read, MAX_TOP_K, the embedding batch size, cooldown and timeout, the
+rerank model name and the prompts directory.
 """
 
 from __future__ import annotations
@@ -134,3 +136,15 @@ def get_batch_timeout_s() -> float:
 def get_batch_cooldown_ms() -> int:
     """Pause between embedding batches (EMBEDDING_BATCH_COOLDOWN_MS)."""
     return _env_number("EMBEDDING_BATCH_COOLDOWN_MS", 0, int)
+
+
+def get_rerank_model() -> Optional[str]:
+    """Rerank model name (RAG_TPU_RERANK_MODEL, else the reference's
+    OLLAMA_RERANK_MODEL); None disables the second stage."""
+    return os.environ.get("RAG_TPU_RERANK_MODEL") or os.environ.get("OLLAMA_RERANK_MODEL")
+
+
+def get_prompts_dir() -> str:
+    """Directory of prompt templates (PROMPTS_DIR), relative to the
+    working directory by default."""
+    return os.environ.get("PROMPTS_DIR", "./prompts")

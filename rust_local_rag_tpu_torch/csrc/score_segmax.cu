@@ -1,13 +1,17 @@
-// Masked query x corpus scores plus the max of every 128-row segment, in
-// one pass over the corpus, for sm_90a.
+// Query x corpus scores plus the max of every 128-row segment, in one pass
+// over the corpus, for sm_90a; with a validity mask or without one.
 //
-// Replaces the TPU kernel fused_score_segmax_masked / _make_masked_kernel
-// (rust_local_rag_tpu/ops/pallas_topk.py:217-319). It computes the same
-// function, not the same blocking:
-//   scores[q, n] = dot(queries[q, :], corpus[n, :]) where mask[n], else -inf
+// Replaces two TPU kernels (rust_local_rag_tpu/ops/pallas_topk.py):
+// fused_score_segmax_masked / _make_masked_kernel (:217-319), the entry
+// score_segmax_masked, and fused_score_segmax / _score_segmax_kernel
+// (:65-185), the entry score_segmax_unmasked. It computes the same
+// functions, not the same blocking:
+//   scores[q, n] = dot(queries[q, :], corpus[n, :]), and -inf where the
+//                  mask is given and mask[n] is 0
 //   segmax[q, s] = max(scores[q, 128 s : 128 s + 128])
 // segmax is [Q, N/128] here (the TPU stored it transposed only for its
-// store alignment); the selection step reads this layout.
+// store alignment); the selection step reads this layout. The unmasked
+// entry never reads a mask.
 //
 // Design. One block owns one 128-row segment and a tile of 16 queries; the
 // grid is (query tiles, segments) with the query tile fastest, so the
@@ -85,9 +89,9 @@ __device__ __forceinline__ void load_corpus_tile(
   }
 }
 
-template <typename T>
+template <typename T, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-score_segmax_masked_kernel(const float* __restrict__ queries,
+score_segmax_kernel(const float* __restrict__ queries,
                            const T* __restrict__ corpus,
                            const uint8_t* __restrict__ mask,
                            float* __restrict__ scores,
@@ -144,7 +148,7 @@ score_segmax_masked_kernel(const float* __restrict__ queries,
 
   bool live[RPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) live[r] = mask[row0 + lane + 32 * r] != 0;
+  for (int r = 0; r < RPT; ++r) live[r] = !MASKED || mask[row0 + lane + 32 * r] != 0;
   const int nseg = N / SEG;
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
@@ -163,29 +167,45 @@ score_segmax_masked_kernel(const float* __restrict__ queries,
   }
 }
 
+template <bool MASKED>
+int launch(const void* queries, const void* corpus, const void* mask,
+           void* scores, void* segmax, int Q, int N, int D, int corpus_bf16,
+           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Q + BQ - 1) / BQ, N / SEG);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (corpus_bf16) {
+    score_segmax_kernel<__nv_bfloat16, MASKED><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(queries),
+        static_cast<const __nv_bfloat16*>(corpus),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
+        static_cast<float*>(segmax), Q, N, D);
+  } else {
+    score_segmax_kernel<float, MASKED><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(queries), static_cast<const float*>(corpus),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
+        static_cast<float*>(segmax), Q, N, D);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int score_segmax_masked(const void* queries, const void* corpus,
                                    const void* mask, void* scores,
                                    void* segmax, int Q, int N, int D,
                                    int corpus_bf16, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Q + BQ - 1) / BQ, N / SEG);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (corpus_bf16) {
-    score_segmax_masked_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(queries),
-        static_cast<const __nv_bfloat16*>(corpus),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
-        static_cast<float*>(segmax), Q, N, D);
-  } else {
-    score_segmax_masked_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(queries), static_cast<const float*>(corpus),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
-        static_cast<float*>(segmax), Q, N, D);
-  }
-  return (int)cudaGetLastError();
+  return launch<true>(queries, corpus, mask, scores, segmax, Q, N, D,
+                      corpus_bf16, device, stream);
+}
+
+extern "C" int score_segmax_unmasked(const void* queries, const void* corpus,
+                                     void* scores, void* segmax, int Q, int N,
+                                     int D, int corpus_bf16, int device,
+                                     void* stream) {
+  return launch<false>(queries, corpus, nullptr, scores, segmax, Q, N, D,
+                       corpus_bf16, device, stream);
 }
 
 extern "C" const char* score_segmax_error_string(int err) {

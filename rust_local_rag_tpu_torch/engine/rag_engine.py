@@ -1,15 +1,27 @@
-"""RagEngine of the port: ingest and the rerank-off search lane (port of
-rust_local_rag_tpu/engine/rag_engine.py, plain lane).
+"""RagEngine of the port: ingest, the rerank-off hot lane, and the two
+rerank-on lanes (port of rust_local_rag_tpu/engine/rag_engine.py).
 
 Ingest: hash skip, PDF text, sentence chunks, batched embeddings,
-replace-document, index sync, persist. Search: query embeddings stay on
-the device, BM25 hits are shipped sparse, and ops/hybrid.hybrid_topk_packed
-does the dense scoring (the score + segment-max kernel on large slabs),
-exact top-k and the lexical blend in one call whose packed [Q, 4, k] int32
-result comes back in one copy.
+replace-document, index sync, persist. First stage: query embeddings stay
+on the device, BM25 hits are shipped sparse, and
+ops/hybrid.hybrid_topk_packed does the dense scoring (the score +
+segment-max kernel on large slabs), exact top-k and the lexical blend in
+one call whose packed [Q, 4, k] int32 result comes back in one copy.
 
-This port has no reranker, MMR, judged, int8 or mesh lanes yet; with no
-reranker, search_batch behaves as the JAX engine does without one.
+Lanes:
+  * hot lane (rerank off): dispatch_search -> fetch_columnar ->
+    results_from_columnar;
+  * object lane (search_batch with the reranker): the initial_k pool (or
+    its top_k head at reranker weight 0) is judged in one batched forward
+    and blended with the initial scores (_blend_and_fill); a failed judge
+    pass falls back to initial scores and adds one to rerank_fallbacks;
+  * judge-gated lane (reranker weight 0, the shipped quality
+    configuration): dispatch_search -> judge_columnar -> fetch_judged ->
+    results_from_judged, columnar end to end.
+Rejection: the dense-cosine floor, the judge floor, the query floor on the
+best judged yes-probability, and the joint unseen-term gate (2-way, or
+3-way with the judge-rescue term). There are no MMR, int8 or mesh lanes
+yet; search_with_diversity_batch takes diversity 0 only.
 """
 
 from __future__ import annotations
@@ -17,6 +29,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import threading
 import uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -32,6 +45,12 @@ from rust_local_rag_tpu_torch.ingest import chunk_text as chunk_text_fn
 from rust_local_rag_tpu_torch.ingest.pdf import extract_pdf_text
 from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService
 from rust_local_rag_tpu_torch.models.encoder import TransformerEncoderModel
+from rust_local_rag_tpu_torch.models.reranker_service import (
+    RerankedResult,
+    RerankerCandidate,
+    RerankerService,
+    build_default_reranker,
+)
 from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
 from rust_local_rag_tpu_torch.ops.hybrid import (
     hybrid_topk_packed,
@@ -79,6 +98,9 @@ class SearchResult:
     embedding_score: Optional[float] = None
     lexical_score: Optional[float] = None
     initial_score: Optional[float] = None
+    reranker_score: Optional[float] = None
+    yes_logprob: Optional[float] = None
+    no_logprob: Optional[float] = None
 
 
 @dataclass
@@ -112,6 +134,43 @@ class ColumnarResults:
     floor: float       # rejection floor (0 = off)
 
 
+@dataclass
+class PendingJudged:
+    """Judge-gated search: first stage fetched, judge forward dispatched
+    but not fetched."""
+
+    col: ColumnarResults
+    handle: object              # reranker dispatch handle
+    flat_qi: np.ndarray         # [M] query index of each scored prompt
+    flat_rank: np.ndarray       # [M] row rank of each scored prompt
+    nq: int
+    thr: float                  # judge yes-probability floor
+    cos_floor: float            # dense-cosine floor (joint gate)
+    q_floor: float              # query floor on the best judged yes-p
+    init_w: float               # resolved initial-score blend weight
+    # the 3-way unseen gate, applied in fetch_judged once the judged yes-p
+    # of every row is known; None = off
+    unseen: Optional[np.ndarray] = None
+    unseen_mass: float = 0.0
+    unseen_cos: float = 1.0
+    unseen_judge: float = 0.0
+
+
+@dataclass
+class JudgedColumnar:
+    """Judge-gated results: the first-stage columnar arrays plus the judge
+    outputs of each row and the score the object lane's blend gives at
+    reranker weight 0."""
+
+    col: ColumnarResults
+    score: np.ndarray    # [nq, k] init_w * initial / max(initial) per row
+    rr: np.ndarray       # [nq, k] judge yes-probability (-inf = unjudged)
+    yes: np.ndarray      # [nq, k] yes logprob
+    no: np.ndarray       # [nq, k] no logprob
+    thr: float
+    cos_floor: float
+
+
 def _normalize_vec(v: np.ndarray) -> np.ndarray:
     """rag_engine.rs:1763-1771"""
     v = np.asarray(v, dtype=np.float32)
@@ -126,6 +185,7 @@ class RagEngine:
         self,
         data_dir: str,
         embedding_service: EmbeddingService,
+        reranker: Optional[RerankerService] = None,
         corpus_dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cuda",
     ):
@@ -133,6 +193,10 @@ class RagEngine:
         says otherwise. Loads any saved index of the model from data_dir."""
         self.data_dir = data_dir
         self.embedding_service = embedding_service
+        self.reranker = reranker
+        # object-lane judge passes answered with initial scores instead
+        self.rerank_fallbacks = 0
+        self._fallback_lock = threading.Lock()
         self.device = resolve_device(device)
         dtype_env = os.environ.get("RAG_TPU_CORPUS_DTYPE")
         if dtype_env == "bf16":
@@ -143,12 +207,16 @@ class RagEngine:
         self.lexical_index = LexicalIndex()
         self.document_hashes: Dict[str, str] = {}
         self._needs_reindex = False
-        # engine-level rejection (see the JAX engine's __init__ notes):
-        # absolute dense-cosine floors, and the joint unseen-term gate
+        # engine-level rejection (see the JAX engine's __init__ notes): the
+        # judge / dense-cosine floors, the query floor on the best judged
+        # yes-probability, and the joint unseen-term gate with its
+        # judge-rescue term (0 = the 2-way gate)
         self._rejection_threshold = env_float("RAG_TPU_REJECTION_THRESHOLD", 0.0)
         self._rejection_cosine_floor = env_float("RAG_TPU_REJECTION_COSINE_FLOOR", 0.0)
+        self._rejection_query_floor = env_float("RAG_TPU_REJECTION_QUERY_FLOOR", 0.0)
         self._rejection_unseen_mass = env_float("RAG_TPU_REJECTION_UNSEEN_MASS", 0.0)
         self._rejection_unseen_cos = env_float("RAG_TPU_REJECTION_UNSEEN_COS", 1.0)
+        self._rejection_unseen_judge = env_float("RAG_TPU_REJECTION_UNSEEN_JUDGE", 0.0)
         self.load_from_disk()
 
     # ----- lifecycle -------------------------------------------------------
@@ -159,16 +227,27 @@ class RagEngine:
         data_dir: str,
         device: str | torch.device = "cuda",
         model_name: str = "nomic-embed-text",
+        reranker: Optional[RerankerService] = None,
     ) -> "RagEngine":
-        """Engine over the committed encoder and tokenizer."""
+        """Engine over the committed encoder and tokenizer, with `reranker`
+        or else the configured one (build_default_reranker: none unless
+        RAG_TPU_RERANK_MODEL names one)."""
         svc = EmbeddingService(
             TransformerEncoderModel.from_assets(model_name=model_name, device=device)
         )
         svc.verify()
-        return cls(data_dir, svc, device=device)
+        if reranker is None:
+            reranker = build_default_reranker(device)
+        return cls(data_dir, svc, reranker, device=device)
 
     def embedding_model(self) -> str:
         return self.embedding_service.model_name
+
+    def has_reranker(self) -> bool:
+        return self.reranker is not None
+
+    def get_reranker(self) -> Optional[RerankerService]:
+        return self.reranker
 
     # ----- ingest -----------------------------------------------------------
 
@@ -260,7 +339,7 @@ class RagEngine:
     # ----- search -----------------------------------------------------------
 
     def search(self, query: str, top_k: int, weights: Optional[QueryWeights] = None, **kw):
-        """One query through search_batch."""
+        """One query through search_batch (same keyword options)."""
         return self.search_batch([query], top_k, weights, **kw)[0]
 
     def _unseen_gate(self, queries: List[str], mass: Optional[float], cos: Optional[float]):
@@ -322,14 +401,17 @@ class RagEngine:
         rejection_threshold: Optional[float] = None,
         use_reranker: bool = True,
         rejection_cosine_floor: Optional[float] = None,
+        rejection_query_floor: Optional[float] = None,
         rejection_unseen_mass: Optional[float] = None,
         rejection_unseen_cos: Optional[float] = None,
+        rejection_unseen_judge: Optional[float] = None,
     ) -> List[List[SearchResult]]:
-        """Batched first-stage retrieval. The port has no reranker, so
-        use_reranker changes nothing (as in the JAX engine without one):
-        the device selects initial_k = 3 * top_k exactly and the top_k
-        head is materialised."""
-        del use_reranker
+        """Two-stage retrieval for a batch (the object lane): one first-stage
+        pass selects initial_k = 3 * top_k exactly; with a reranker and
+        use_reranker, every query's candidates go through one batched judge
+        forward and are blended with their initial scores. Without a
+        reranker (or with use_reranker False) the top_k head is
+        materialised directly (rag_engine.py:716-1105 there)."""
         if len(self.store) == 0 or not queries:
             return [[] for _ in queries]
         resolved = ResolvedWeights.from_query_weights(weights)
@@ -337,8 +419,15 @@ class RagEngine:
         nq = len(queries)
         initial_k = min(len(self.store), max(top_k * 3, top_k))
         out, _, _, _ = self._dispatch(queries, top_k, initial_k, resolved)
+        # Only rows that can be emitted are materialised: the whole pool
+        # when the judge's score enters the blend, else the top_k head
+        # (device rows are sorted by combined score, and at reranker weight
+        # 0 the blend keeps that order; with both weights 0 the blend falls
+        # back to judge order over the pool, so the head is not enough).
+        reranking = self.reranker is not None and use_reranker
+        head_only = not reranking or (resolved.reranker == 0.0 and resolved.initial > 0.0)
+        need_rows = min(top_k, initial_k) if head_only else initial_k
         vals_b, emb_b, lex_b, idx_b = unpack_topk(out.cpu().numpy(), nq, initial_k)
-        need_rows = min(top_k, initial_k)
         vals_l = vals_b[:, :need_rows].tolist()
         emb_l = emb_b[:, :need_rows].tolist()
         lex_l = lex_b[:, :need_rows].tolist()
@@ -346,12 +435,11 @@ class RagEngine:
         finite_l = np.isfinite(vals_b[:, :need_rows]).tolist()
 
         thr = rejection_threshold if rejection_threshold is not None else self._rejection_threshold
-        cosf = (
+        cos_floor = (
             rejection_cosine_floor
             if rejection_cosine_floor is not None
             else self._rejection_cosine_floor
         )
-        eff_floor = max(thr, cosf)
         unseen, um_a, um_b = self._unseen_gate(queries, rejection_unseen_mass, rejection_unseen_cos)
         um_rejected = None
         if unseen is not None:
@@ -361,23 +449,186 @@ class RagEngine:
             )
             um_rejected = (unseen >= um_a) & (best_e <= um_b)
 
-        outputs: List[List[SearchResult]] = []
+        if not reranking:
+            # rows arrive sorted by combined score, the fallback-fill order;
+            # without a judge the rejection confidence is the dense cosine
+            eff_floor = max(thr, cos_floor)
+            outputs: List[List[SearchResult]] = []
+            for qi in range(nq):
+                if um_rejected is not None and um_rejected[qi]:
+                    outputs.append([])
+                    continue
+                res: List[SearchResult] = []
+                for rank in range(need_rows):
+                    slot = idx_l[qi][rank]
+                    if slot < 0 or not finite_l[qi][rank]:
+                        continue
+                    if eff_floor > 0.0 and emb_l[qi][rank] < eff_floor:
+                        continue
+                    res.append(self._result(slot, vals_l[qi][rank], emb_l[qi][rank], lex_l[qi][rank]))
+                outputs.append(res)
+            return outputs
+
+        per_query_candidates: List[List[dict]] = []
         for qi in range(nq):
-            if um_rejected is not None and um_rejected[qi]:
-                outputs.append([])
-                continue
-            res: List[SearchResult] = []
+            candidates: List[dict] = []
             for rank in range(need_rows):
                 slot = idx_l[qi][rank]
                 if slot < 0 or not finite_l[qi][rank]:
                     continue
-                if eff_floor > 0.0 and emb_l[qi][rank] < eff_floor:
-                    continue
-                res.append(self._result(slot, vals_l[qi][rank], emb_l[qi][rank], lex_l[qi][rank]))
-            outputs.append(res)
+                candidates.append({
+                    "slot": slot,
+                    "meta": self.store.meta_for_slot(slot),
+                    "initial_score": vals_l[qi][rank],
+                    "embedding_score": emb_l[qi][rank],
+                    "lexical_score": lex_l[qi][rank],
+                })
+            per_query_candidates.append(candidates)
+
+        # every query's candidates in one batched judge forward
+        flat_inputs = [
+            (qi, RerankerCandidate(
+                chunk_id=c["meta"].id,
+                document=c["meta"].document_name,
+                text=c["meta"].text,
+                page_number=c["meta"].page_number,
+                section=c["meta"].section,
+                initial_score=c["initial_score"],
+            ))
+            for qi, candidates in enumerate(per_query_candidates)
+            for c in candidates
+        ]
+        per_query_reranked: List[List[RerankedResult]] = [[] for _ in range(nq)]
+        if flat_inputs:
+            try:
+                per_query_reranked = self._rerank_flat(queries, flat_inputs, nq)
+            except Exception:  # noqa: BLE001 - the reference degrades to initial scores (rag_engine.rs:586-597)
+                logger.warning("Reranker failed, falling back to initial scores", exc_info=True)
+                with self._fallback_lock:
+                    self.rerank_fallbacks += 1
+
+        outputs = [
+            self._blend_and_fill(per_query_candidates[qi], per_query_reranked[qi], resolved, top_k)
+            for qi in range(nq)
+        ]
+        if um_rejected is not None:
+            um_judge = (
+                rejection_unseen_judge
+                if rejection_unseen_judge is not None
+                else self._rejection_unseen_judge
+            )
+            if um_judge > 0.0 and any(per_query_reranked):
+                # 3-way rule: a confident judged yes anywhere in the pool
+                # vetoes the unseen-term rejection
+                for qi in range(nq):
+                    judged = [r.relevance for r in per_query_reranked[qi]]
+                    if judged and max(judged) > um_judge:
+                        um_rejected[qi] = False
+            outputs = [[] if um_rejected[qi] else outputs[qi] for qi in range(nq)]
+        q_floor = (
+            rejection_query_floor
+            if rejection_query_floor is not None
+            else self._rejection_query_floor
+        )
+        if q_floor > 0.0:
+            # query-level rejection: the best judged yes-probability over
+            # the whole judged pool decides whether the query is answerable
+            for qi in range(nq):
+                judged = [r.relevance for r in per_query_reranked[qi]]
+                if judged and max(judged) < q_floor:
+                    outputs[qi] = []
+        if thr > 0.0 or cos_floor > 0.0:
+            # confidence: the judge's yes-probability where the row was
+            # judged, and then the cosine floor must pass too (the joint
+            # gate); else the absolute dense cosine
+            def _keep(r: SearchResult) -> bool:
+                if r.reranker_score is not None:
+                    if thr > 0.0 and r.reranker_score < thr:
+                        return False
+                    return not (cos_floor > 0.0 and (r.embedding_score or 0.0) < cos_floor)
+                return (r.embedding_score or 0.0) >= max(thr, cos_floor)
+
+            outputs = [[r for r in out if _keep(r)] for out in outputs]
         return outputs
 
-    def _result(self, slot: int, score: float, emb: float, lex: float) -> SearchResult:
+    def _rerank_flat(self, queries: List[str], flat_inputs, nq: int) -> List[List[RerankedResult]]:
+        """Score every (query, candidate) pair in one forward; regroup and
+        sort each query's results by relevance (reranker.rs:261-266)."""
+        prompts = [self.reranker.build_prompt(queries[qi], cand) for qi, cand in flat_inputs]
+        scored = self.reranker.score_prompts(prompts)
+        grouped: List[List[RerankedResult]] = [[] for _ in range(nq)]
+        for (qi, cand), (s, y, n) in zip(flat_inputs, scored):
+            grouped[qi].append(
+                RerankedResult(chunk_id=cand.chunk_id, relevance=float(s), yes_logprob=y, no_logprob=n)
+            )
+        for g in grouped:
+            g.sort(key=lambda r: -r.relevance)
+        return grouped
+
+    def _blend_and_fill(
+        self, candidates: List[dict], reranked: List[RerankedResult], resolved: ResolvedWeights, top_k: int
+    ) -> List[SearchResult]:
+        """Per-query max normalisation and blend of judge and initial scores
+        (rag_engine.rs:602-665), then a fill from initial scores up to top_k
+        (rag_engine.rs:667-698)."""
+        if not candidates:
+            return []
+        by_id = {c["meta"].id: c for c in candidates}
+        ordered: List[SearchResult] = []
+        seen: set = set()
+        if reranked:
+            max_rr = max(max((r.relevance for r in reranked), default=0.0), F32_EPSILON)
+            max_init = max(max((c["initial_score"] for c in candidates), default=0.0), F32_EPSILON)
+            for r in reranked:
+                c = by_id.get(r.chunk_id)
+                if c is None or r.chunk_id in seen:
+                    continue
+                seen.add(r.chunk_id)
+                blended = (
+                    resolved.reranker * (r.relevance / max_rr)
+                    + resolved.initial * (c["initial_score"] / max_init)
+                )
+                res = self._candidate_result(c, blended)
+                res.reranker_score = r.relevance
+                res.yes_logprob = r.yes_logprob
+                res.no_logprob = r.no_logprob
+                ordered.append(res)
+            ordered.sort(key=lambda r: -r.score)
+            ordered = ordered[:top_k]
+        if len(ordered) < top_k:
+            for c in sorted(candidates, key=lambda c: -c["initial_score"]):
+                if len(ordered) == top_k:
+                    break
+                if c["meta"].id in seen:
+                    continue
+                seen.add(c["meta"].id)
+                ordered.append(self._candidate_result(c, c["initial_score"]))
+        return ordered
+
+    def _candidate_result(self, c: dict, score: float) -> SearchResult:
+        return self._result(
+            c["slot"], score, c["embedding_score"], c["lexical_score"], initial=c["initial_score"]
+        )
+
+    def search_with_diversity_batch(
+        self,
+        queries: List[str],
+        top_k: int,
+        diversity_factor: float,
+        weights: Optional[QueryWeights] = None,
+        **kw,
+    ) -> List[List[SearchResult]]:
+        """Diversity 0 is search_batch (same keyword options); MMR
+        (diversity > 0) is not ported yet."""
+        if min(max(diversity_factor, 0.0), 1.0) != 0.0:
+            raise NotImplementedError("MMR lane (diversity > 0) is not ported yet")
+        return self.search_batch(queries, top_k, weights, **kw)
+
+    def _result(
+        self, slot: int, score: float, emb: float, lex: float, initial: Optional[float] = None
+    ) -> SearchResult:
+        """SearchResult of a store slot; the initial score is `score`
+        unless given."""
         m = self.store.meta_for_slot(slot)
         return SearchResult(
             text=m.text,
@@ -389,7 +640,7 @@ class RagEngine:
             section=m.section,
             embedding_score=emb,
             lexical_score=lex,
-            initial_score=score,
+            initial_score=score if initial is None else initial,
         )
 
     # ----- hot-lane dispatch/fetch split -------------------------------------
@@ -461,6 +712,162 @@ class RagEngine:
             out.append(self._result(slot, v, row_e[rank], row_l[rank]))
         return out
 
+    # ----- judge-gated lane (the quality configuration, columnar) -------------
+
+    def supports_judged_columnar(self, weights: Optional[QueryWeights], use_reranker: bool) -> bool:
+        """The judge-gated lane serves reranking at blend weight 0 (the judge
+        as a rejection gate over the initial order): the blend is then a
+        monotonic transform of the first-stage order, so only the top_k
+        head is emitted and the lane stays columnar."""
+        if self.reranker is None or not use_reranker:
+            return False
+        resolved = ResolvedWeights.from_query_weights(weights)
+        return resolved.reranker == 0.0 and resolved.initial > 0.0
+
+    def judge_columnar(
+        self,
+        pending: PendingSearch,
+        queries: List[str],
+        weights: Optional[QueryWeights] = None,
+        rejection_threshold: Optional[float] = None,
+        rejection_cosine_floor: Optional[float] = None,
+        rejection_query_floor: Optional[float] = None,
+        rejection_unseen_mass: Optional[float] = None,
+        rejection_unseen_cos: Optional[float] = None,
+        rejection_unseen_judge: Optional[float] = None,
+    ) -> PendingJudged:
+        """Fetch the first stage, build a judge prompt for every valid head
+        row and dispatch one batched judge forward without fetching it.
+        With the judge-rescue term off, the 2-way unseen gate applies here
+        (a rejected query gets no prompts); with it on, the gate waits for
+        the judged yes-probabilities in fetch_judged."""
+        um_judge = (
+            rejection_unseen_judge
+            if rejection_unseen_judge is not None
+            else self._rejection_unseen_judge
+        )
+        unseen, um_a, um_b = self._unseen_gate(queries, rejection_unseen_mass, rejection_unseen_cos)
+        if unseen is not None and um_judge <= 0.0 and pending.unseen is None:
+            pending.unseen = unseen
+            pending.unseen_mass = um_a
+            pending.unseen_cos = um_b
+        col = self.fetch_columnar(pending)
+        nq = pending.nq
+        resolved = ResolvedWeights.from_query_weights(weights)
+        thr = rejection_threshold if rejection_threshold is not None else self._rejection_threshold
+        cos_floor = (
+            rejection_cosine_floor
+            if rejection_cosine_floor is not None
+            else self._rejection_cosine_floor
+        )
+        q_floor = (
+            rejection_query_floor
+            if rejection_query_floor is not None
+            else self._rejection_query_floor
+        )
+        flat_qi: List[int] = []
+        flat_rank: List[int] = []
+        prompts: List[str] = []
+        finite = np.isfinite(col.vals[:nq])
+        for qi in range(nq):
+            for rank in range(col.slots.shape[1]):
+                slot = int(col.slots[qi, rank])
+                if slot < 0 or not finite[qi, rank]:
+                    continue
+                m = self.store.meta_for_slot(slot)
+                prompts.append(self.reranker.build_prompt(queries[qi], RerankerCandidate(
+                    chunk_id=m.id,
+                    document=m.document_name,
+                    text=m.text,
+                    page_number=m.page_number,
+                    section=m.section,
+                    initial_score=float(col.vals[qi, rank]),
+                )))
+                flat_qi.append(qi)
+                flat_rank.append(rank)
+        return PendingJudged(
+            col=col,
+            handle=self.reranker.dispatch_prompts(prompts),
+            flat_qi=np.asarray(flat_qi, dtype=np.int64),
+            flat_rank=np.asarray(flat_rank, dtype=np.int64),
+            nq=nq,
+            thr=max(thr, 0.0),
+            cos_floor=max(cos_floor, 0.0),
+            q_floor=max(q_floor, 0.0),
+            init_w=resolved.initial,
+            unseen=unseen if um_judge > 0.0 else None,
+            unseen_mass=um_a,
+            unseen_cos=um_b,
+            unseen_judge=um_judge,
+        )
+
+    def fetch_judged(self, pj: PendingJudged) -> JudgedColumnar:
+        """Fetch the judge's logprobs, apply the 3-way unseen gate and the
+        query floor by invalidating slot rows, and compute the object
+        lane's weight-0 blend: init_w * initial / max(initial), the max
+        floored at F32_EPSILON."""
+        scored = self.reranker.fetch_prompts(pj.handle)
+        col = pj.col
+        nq = pj.nq
+        kk = col.slots.shape[1]
+        rr = np.full((nq, kk), -np.inf, dtype=np.float32)
+        yes = np.zeros((nq, kk), dtype=np.float32)
+        no = np.zeros((nq, kk), dtype=np.float32)
+        if scored:
+            arr = np.asarray(scored, dtype=np.float64)  # [M, 3]
+            rr[pj.flat_qi, pj.flat_rank] = arr[:, 0]
+            yes[pj.flat_qi, pj.flat_rank] = arr[:, 1]
+            no[pj.flat_qi, pj.flat_rank] = arr[:, 2]
+        vals = col.vals[:nq]
+        valid = (col.slots[:nq] >= 0) & np.isfinite(vals)
+        rejected = np.zeros(nq, dtype=bool)
+        if pj.unseen is not None:
+            judged_max = np.max(np.where(valid, rr, -np.inf), axis=1, initial=-np.inf)
+            best_e = np.max(np.where(valid, col.emb[:nq], -np.inf), axis=1, initial=-np.inf)
+            rejected |= (
+                (pj.unseen[:nq] >= pj.unseen_mass)
+                & (best_e <= pj.unseen_cos)
+                & (judged_max <= pj.unseen_judge)
+            )
+            valid &= ~rejected[:, None]
+        if pj.q_floor > 0.0:
+            judged_max = np.max(np.where(valid, rr, -np.inf), axis=1, initial=-np.inf)
+            rejected |= np.isfinite(judged_max) & (judged_max < pj.q_floor)
+            valid &= ~rejected[:, None]
+        if rejected.any():
+            col.slots = np.array(col.slots)
+            col.slots[:nq][rejected] = -1
+        vmax = np.maximum(np.max(np.where(valid, vals, -np.inf), axis=1, initial=-np.inf), F32_EPSILON)
+        score = (pj.init_w * vals / vmax[:, None]).astype(np.float32)
+        return JudgedColumnar(
+            col=col, score=score, rr=rr, yes=yes, no=no, thr=pj.thr, cos_floor=pj.cos_floor
+        )
+
+    def results_from_judged(self, jc: JudgedColumnar, qi: int) -> List[SearchResult]:
+        """One query's judged results as objects, through the judge floor
+        and the cosine floor (the joint gate)."""
+        col = jc.col
+        row_i = col.slots[qi].tolist()
+        row_v = col.vals[qi].tolist()
+        row_e = col.emb[qi].tolist()
+        row_l = col.lex[qi].tolist()
+        out: List[SearchResult] = []
+        for rank, slot in enumerate(row_i):
+            v = row_v[rank]
+            if slot < 0 or v != v or v in (float("inf"), float("-inf")):
+                continue
+            rr_v = float(jc.rr[qi, rank])
+            if jc.thr > 0.0 and rr_v < jc.thr:
+                continue
+            if jc.cos_floor > 0.0 and row_e[rank] < jc.cos_floor:
+                continue
+            res = self._result(slot, float(jc.score[qi, rank]), row_e[rank], row_l[rank], initial=v)
+            res.reranker_score = rr_v
+            res.yes_logprob = float(jc.yes[qi, rank])
+            res.no_logprob = float(jc.no[qi, rank])
+            out.append(res)
+        return out
+
     # ----- stats / listing ---------------------------------------------------
 
     def list_documents(self) -> List[str]:
@@ -472,7 +879,7 @@ class RagEngine:
             "chunks": len(self.store),
             "status": "reindexing" if self._needs_reindex else "ready",
             "embedding_model": self.embedding_model(),
-            "reranker_model": None,
+            "reranker_model": self.reranker.model_name if self.reranker else None,
             "search_mode": "exact",
         }
 

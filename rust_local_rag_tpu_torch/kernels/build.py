@@ -34,11 +34,16 @@ NVCC_FLAGS = (
 )
 
 # kernel library name -> its ctypes signatures {function: (restype, argtypes)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "score_segmax": {
         "score_segmax_masked": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "score_segmax_unmasked": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "score_segmax_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "attention": {
+        "attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 9, _I, _I, _P]),
+        "attention_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 

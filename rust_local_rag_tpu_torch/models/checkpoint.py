@@ -55,9 +55,10 @@ def read_safetensors(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
 
 
 def params_from_jax(np_params) -> Dict[str, torch.Tensor]:
-    """JAX encoder pytree ({"embed", "final_norm", "layers": [{...}],
-    "out_proj"?}, leaves as numpy) -> flat f32 state_dict of the port's
-    Encoder ("layers.<i>.<name>", the safetensors naming)."""
+    """JAX encoder or reranker pytree ({"embed", "final_norm", "layers":
+    [{...}], and "out_proj" or "lm_head"}, leaves as numpy) -> flat f32
+    state_dict of the port's Encoder or Reranker ("layers.<i>.<name>", the
+    safetensors naming)."""
     flat: Dict[str, torch.Tensor] = {}
     for key, val in np_params.items():
         if key == "layers":

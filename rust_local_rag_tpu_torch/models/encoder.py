@@ -11,6 +11,10 @@ Attention is written in plain torch ops, as the JAX package's default path
 writes it (encoder.py:180-189 there): no scaled_dot_product_attention. The
 dtype flow follows the JAX code line by line: RoPE promotes q and k to f32,
 the score matmul runs in f32, probabilities are cast to bf16 before PV.
+With fused_attn (default: use_fused_attention(), RAG_TPU_FUSED_ATTN=1) the
+rotated q and k are cast to the activation type and attention goes through
+ops/attention.fused_attention, as encoder.py:174-178 there does.
+transformer_layer is shared with the reranker (models/reranker.py).
 State_dict keys are the safetensors names (embed, final_norm, out_proj,
 layers.<i>.{attn_norm,wq,wk,wv,wo,ffn_norm,w_gate,w_up,w_down}).
 """
@@ -31,6 +35,7 @@ from torch import nn
 from rust_local_rag_tpu_torch.device import resolve_device
 from rust_local_rag_tpu_torch.models.checkpoint import read_safetensors
 from rust_local_rag_tpu_torch.models.tokenizer import bucket_batch, load_tokenizer
+from rust_local_rag_tpu_torch.ops.attention import fused_attention, use_fused_attention
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -95,7 +100,9 @@ def _dense(gen: torch.Generator, *shape: int) -> nn.Parameter:
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: EncoderConfig, gen: torch.Generator):
+    """Weights of one pre-norm transformer layer (encoder and reranker)."""
+
+    def __init__(self, cfg, gen: torch.Generator):
         super().__init__()
         d, f = cfg.dim, cfg.ffn_dim
         self.attn_norm = nn.Parameter(torch.ones(d))
@@ -107,6 +114,45 @@ class EncoderLayer(nn.Module):
         self.w_gate = _dense(gen, d, f)
         self.w_up = _dense(gen, d, f)
         self.w_down = _dense(gen, f, d)
+
+
+def transformer_layer(
+    layer: EncoderLayer,
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    heads: int,
+    mask: torch.Tensor,
+    attn_bias: Optional[torch.Tensor],
+    fused_attn: bool,
+    causal: bool,
+) -> torch.Tensor:
+    """x [B, L, D] (activation type) -> x after attention and SwiGLU, with
+    residuals. The plain branch adds attn_bias ([B, 1, L, L] or broadcastable,
+    f32) to the f32 scores; the fused branch gives the kernel the mask and
+    the causal flag."""
+    act = x.dtype
+    B, L, D = x.shape
+    Dh = D // heads
+    h = _rmsnorm(x, layer.attn_norm)
+    q = (h @ layer.wq.to(act)).view(B, L, heads, Dh).transpose(1, 2)
+    k = (h @ layer.wk.to(act)).view(B, L, heads, Dh).transpose(1, 2)
+    v = (h @ layer.wv.to(act)).view(B, L, heads, Dh).transpose(1, 2)
+    q = _apply_rope(q, cos, sin)
+    k = _apply_rope(k, cos, sin)
+    if fused_attn:
+        ctx = fused_attention(q.to(act), k.to(act), v, mask.to(torch.int32).contiguous(), causal=causal)
+    else:
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(Dh) + attn_bias
+        probs = torch.softmax(scores, dim=-1).to(act)
+        ctx = torch.matmul(probs, v)
+    ctx = ctx.transpose(1, 2).reshape(B, L, D)
+    x = x + ctx @ layer.wo.to(act)
+
+    h = _rmsnorm(x, layer.ffn_norm)
+    gate = h @ layer.w_gate.to(act)
+    up = h @ layer.w_up.to(act)
+    return x + (nn.functional.silu(gate) * up) @ layer.w_down.to(act)
 
 
 class Encoder(nn.Module):
@@ -123,35 +169,25 @@ class Encoder(nn.Module):
         if cfg.out_dim != cfg.dim:
             self.out_proj = _dense(gen, cfg.dim, cfg.out_dim)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, ids: torch.Tensor, mask: torch.Tensor, fused_attn: Optional[bool] = None
+    ) -> torch.Tensor:
         cfg = self.cfg
         act = _DTYPES[cfg.activation_dtype]
-        B, L = ids.shape
-        H, Dh = cfg.heads, cfg.head_dim
+        L = ids.shape[1]
+        if fused_attn is None:
+            fused_attn = use_fused_attention()
         x = self.embed[ids.long()].to(act)  # [B, L, D]
         cos, sin = _rope(cfg, L, ids.device)
-        attn_bias = torch.where(
-            mask[:, None, None, :].bool(),
-            torch.zeros((), dtype=torch.float32, device=ids.device),
-            torch.full((), -1e9, dtype=torch.float32, device=ids.device),
-        )
+        attn_bias = None
+        if not fused_attn:
+            attn_bias = torch.where(
+                mask[:, None, None, :].bool(),
+                torch.zeros((), dtype=torch.float32, device=ids.device),
+                torch.full((), -1e9, dtype=torch.float32, device=ids.device),
+            )
         for layer in self.layers:
-            h = _rmsnorm(x, layer.attn_norm)
-            q = (h @ layer.wq.to(act)).view(B, L, H, Dh).transpose(1, 2)
-            k = (h @ layer.wk.to(act)).view(B, L, H, Dh).transpose(1, 2)
-            v = (h @ layer.wv.to(act)).view(B, L, H, Dh).transpose(1, 2)
-            q = _apply_rope(q, cos, sin)
-            k = _apply_rope(k, cos, sin)
-            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(Dh) + attn_bias
-            probs = torch.softmax(scores, dim=-1).to(act)
-            ctx = torch.matmul(probs, v)
-            ctx = ctx.transpose(1, 2).reshape(B, L, cfg.dim)
-            x = x + ctx @ layer.wo.to(act)
-
-            h = _rmsnorm(x, layer.ffn_norm)
-            gate = h @ layer.w_gate.to(act)
-            up = h @ layer.w_up.to(act)
-            x = x + (nn.functional.silu(gate) * up) @ layer.w_down.to(act)
+            x = transformer_layer(layer, x, cos, sin, cfg.heads, mask, attn_bias, fused_attn, causal=False)
 
         x = _rmsnorm(x, self.final_norm).float()
         m = mask.float()[:, :, None]

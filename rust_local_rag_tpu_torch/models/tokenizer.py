@@ -1,4 +1,4 @@
-"""Tokenization for the port's encoder.
+"""Tokenization for the port's encoder and reranker.
 
 Two backends, as in rust_local_rag_tpu/models/tokenizer.py:
   * WordPieceTokenizer: a pure-Python reading of a local tokenizer.json
@@ -10,7 +10,8 @@ Two backends, as in rust_local_rag_tpu/models/tokenizer.py:
   * HashTokenizer: deterministic and vocabulary-free (copied verbatim).
 
 Both produce [batch, L] int32 id matrices plus masks padded to a bucketed
-length, the shapes the JAX package's encoder sees.
+length, the shapes the JAX package's encoder sees, and the reranker's fixed
+[batch, seq_len] head + tail packing (encode_batch_headtail).
 """
 
 from __future__ import annotations
@@ -112,6 +113,12 @@ class HashTokenizer:
             ids.append(_N_SPECIAL + h % (self.vocab_size - _N_SPECIAL))
         ids.append(SEP_ID)
         return ids
+
+    def encode_batch_headtail(
+        self, texts: Sequence[str], seq_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Fixed-shape [B, seq_len] judge encoding (see headtail_pack)."""
+        return headtail_pack([self.tokenize_full(t) for t in texts], seq_len, PAD_ID)
 
     def encode_batch(
         self, texts: Sequence[str], buckets: Sequence[int] = DEFAULT_BUCKETS
@@ -295,6 +302,13 @@ class WordPieceTokenizer:
 
     def tokenize(self, text: str) -> List[int]:
         return self.tokenize_full(text)[: self.max_len]
+
+    def encode_batch_headtail(
+        self, texts: Sequence[str], seq_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Fixed-shape [B, seq_len] judge encoding of the untruncated ids
+        (see headtail_pack), padded with [PAD]."""
+        return headtail_pack([self.tokenize_full(t) for t in texts], seq_len, self._pad)
 
     def encode_batch(
         self, texts: Sequence[str], buckets: Sequence[int] = DEFAULT_BUCKETS

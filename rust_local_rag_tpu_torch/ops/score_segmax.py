@@ -1,16 +1,19 @@
-"""Masked query x corpus scores plus per-segment maxima: the CUDA kernel
-csrc/score_segmax.cu and its plain PyTorch version.
+"""Query x corpus scores plus per-segment maxima, masked and unmasked: the
+CUDA kernels of csrc/score_segmax.cu and their plain PyTorch versions.
 
-Port of the TPU kernel fused_score_segmax_masked
-(rust_local_rag_tpu/ops/pallas_topk.py:217-319). The segmented exact top-k
+Ports of the TPU kernels fused_score_segmax_masked
+(rust_local_rag_tpu/ops/pallas_topk.py:217-319), the first stage of the
+hybrid search, and fused_score_segmax (:65-185), the unmasked form behind
+pallas_segmented_topk (:189-214). The segmented exact top-k
 (ops/fast_topk.py) needs the scores and the max of every 128-row segment;
-the kernel produces both in one pass over the corpus, with -inf at invalid
-slots in both, so the selection stays exact on slabs with freed slots.
-The segment maxima come back as [Q, N/128] (the JAX kernel's [N/128, Q]
-was a TPU store-alignment layout).
+the kernels produce both in one pass over the corpus. The masked form puts
+-inf at invalid slots in both, so the selection stays exact on slabs with
+freed slots. The segment maxima come back as [Q, N/128] (the JAX kernels'
+[N/128, Q] was a TPU store-alignment layout).
 
-score_segmax launches the kernel for CUDA tensors and runs the plain
-version only for CPU tensors; there is no fallback from one to the other.
+score_segmax and fused_score_segmax launch their kernels for CUDA tensors
+and run the plain versions only for CPU tensors; there is no fallback from
+one to the other.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from rust_local_rag_tpu_torch.kernels import build
+from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
 
 SEG = 128  # segment size, rows per kernel block
 
@@ -32,23 +36,29 @@ def score_segmax_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: 
     return scores, scores.view(q, n // SEG, SEG).amax(dim=2)
 
 
-def _check(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: torch.Tensor) -> None:
+def fused_score_segmax_plain(queries: torch.Tensor, corpus: torch.Tensor):
+    """Plain version of the unmasked pass -> (scores [Q, N] f32,
+    segmax [Q, N/128] f32)."""
+    scores = torch.matmul(queries.float(), corpus.float().T)
+    return scores, scores.view(queries.shape[0], corpus.shape[0] // SEG, SEG).amax(dim=2)
+
+
+def _check(queries: torch.Tensor, corpus: torch.Tensor, valid_mask=None) -> None:
     dev = corpus.device
-    if queries.device != dev or valid_mask.device != dev:
+    tensors = (queries, corpus) if valid_mask is None else (queries, corpus, valid_mask)
+    if any(t.device != dev for t in tensors):
         raise ValueError(
-            f"score_segmax: tensors on different devices "
-            f"({queries.device}, {corpus.device}, {valid_mask.device})"
+            f"score_segmax: tensors on different devices ({[str(t.device) for t in tensors]})"
         )
-    if queries.dim() != 2 or corpus.dim() != 2 or valid_mask.dim() != 1:
+    if queries.dim() != 2 or corpus.dim() != 2 or (valid_mask is not None and valid_mask.dim() != 1):
         raise ValueError("score_segmax: expects queries [Q, D], corpus [N, D], mask [N]")
     q, d = queries.shape
     n = corpus.shape[0]
-    if corpus.shape[1] != d or valid_mask.shape[0] != n:
+    if corpus.shape[1] != d or (valid_mask is not None and valid_mask.shape[0] != n):
         raise ValueError(
-            f"score_segmax: shapes {tuple(queries.shape)}, {tuple(corpus.shape)}, "
-            f"{tuple(valid_mask.shape)} do not agree"
+            f"score_segmax: shapes {[tuple(t.shape) for t in tensors]} do not agree"
         )
-    if valid_mask.dtype != torch.bool:
+    if valid_mask is not None and valid_mask.dtype != torch.bool:
         raise TypeError(f"score_segmax: mask must be bool, got {valid_mask.dtype}")
     if q < 1 or n % SEG:
         raise ValueError(f"score_segmax: need Q >= 1 and N % {SEG} == 0 (Q={q}, N={n})")
@@ -61,7 +71,7 @@ def _check(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: torch.Tensor
             raise ValueError(f"score_segmax: D must be a multiple of 8 (D={d})")
         if n // SEG > 65535:
             raise ValueError(f"score_segmax: at most {65535 * SEG} rows (N={n})")
-        for name, t in (("queries", queries), ("corpus", corpus), ("mask", valid_mask)):
+        for name, t in zip(("queries", "corpus", "mask"), tensors):
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"score_segmax: {name} must be contiguous and 16-byte aligned")
 
@@ -97,3 +107,45 @@ def score_segmax(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: torch.
 
 
 score_segmax.launches = 0
+
+
+def fused_score_segmax(queries: torch.Tensor, corpus: torch.Tensor):
+    """queries [Q, D] f32, corpus [N, D] f32 or bf16 -> (scores [Q, N] f32,
+    segmax [Q, N/128] f32), with no mask.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_score_segmax.launches``); CPU tensors take
+    fused_score_segmax_plain."""
+    _check(queries, corpus)
+    dev = corpus.device
+    if dev.type == "cpu":
+        return fused_score_segmax_plain(queries, corpus)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_score_segmax: unsupported device {dev}")
+    lib = build.load("score_segmax")
+    q, d = queries.shape
+    n = corpus.shape[0]
+    scores = torch.empty((q, n), dtype=torch.float32, device=dev)
+    segmax = torch.empty((q, n // SEG), dtype=torch.float32, device=dev)
+    err = lib.score_segmax_unmasked(
+        queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), segmax.data_ptr(),
+        q, n, d, int(corpus.dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.score_segmax_error_string(err).decode()
+        raise RuntimeError(f"fused_score_segmax kernel launch failed: {msg} ({err})")
+    fused_score_segmax.launches += 1
+    return scores, segmax
+
+
+fused_score_segmax.launches = 0
+
+
+def segmented_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int, num_segments: int = 256):
+    """Exact top-k by the unmasked score + segment-max pass and the
+    segmented selection (counterpart of pallas_segmented_topk; exact for
+    S = min(max(num_segments, k), N/128) >= k, the argument of
+    ops/fast_topk.py). -> (values [Q, k] f32, indices [Q, k] int32)."""
+    scores, segmax = fused_score_segmax(queries, corpus)
+    return segmented_select_from(scores, segmax, k, num_segments=num_segments, segment_size=SEG)

@@ -1,15 +1,25 @@
-"""Search micro-batcher (port of rust_local_rag_tpu/server/batcher.py,
-hot lane): concurrent requests with identical parameters inside a small
-window become ONE engine pass, and consecutive batches run on a small pool
-so one batch's host work overlaps the previous batch's device work.
+"""Search micro-batcher (port of rust_local_rag_tpu/server/batcher.py):
+concurrent requests with identical parameters inside a small window become
+ONE engine pass, and consecutive batches run on a small pool so one
+batch's host work overlaps the previous batch's device work.
 
-Only the rerank-off, diversity-0 hot lane exists in this port
-(engine.dispatch_search + engine.fetch_columnar). A batch that needs
-another lane resolves to NotImplementedError naming that lane.
+Lanes, chosen per batch as in the JAX batcher:
+  * hot lane (rerank off, diversity 0): engine.dispatch_search ->
+    fetch_columnar -> results_from_columnar;
+  * judge-gated lane (rerank on at reranker weight 0, diversity 0):
+    dispatch_search -> judge_columnar -> fetch_judged ->
+    results_from_judged; any failure there falls back to the general lane
+    and adds one to ``judged_fallbacks``;
+  * general lane (everything else): engine.search_with_diversity_batch,
+    the object lane. MMR (diversity > 0) is not ported yet and resolves
+    to NotImplementedError.
+Results resolve to SearchResult objects (the native response serializer
+belongs to the HTTP layer, not ported yet).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -18,6 +28,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from rust_local_rag_tpu_torch.config import QueryWeights
+
+logger = logging.getLogger(__name__)
 
 
 def _weights_key(w: Optional[QueryWeights]) -> Tuple:
@@ -36,8 +48,10 @@ class _Item:
     use_reranker: bool
     rejection_threshold: Optional[float]
     rejection_cosine_floor: Optional[float]
+    rejection_query_floor: Optional[float]
     rejection_unseen_mass: Optional[float]
     rejection_unseen_cos: Optional[float]
+    rejection_unseen_judge: Optional[float]
 
 
 class SearchBatcher:
@@ -69,6 +83,9 @@ class SearchBatcher:
         self._pool = ThreadPoolExecutor(
             max_workers=self.pipeline_depth, thread_name_prefix="search-exec"
         )
+        # judged-lane batches that fell back to the general lane
+        self.judged_fallbacks = 0
+        self._fallback_lock = threading.Lock()
         self._stopping = threading.Event()
         self._thread = threading.Thread(target=self._run, name="search-batcher", daemon=True)
         self._thread.start()
@@ -93,8 +110,10 @@ class SearchBatcher:
         rejection_threshold: Optional[float] = None,
         use_reranker: bool = True,
         rejection_cosine_floor: Optional[float] = None,
+        rejection_query_floor: Optional[float] = None,
         rejection_unseen_mass: Optional[float] = None,
         rejection_unseen_cos: Optional[float] = None,
+        rejection_unseen_judge: Optional[float] = None,
     ) -> Future:
         """Enqueue one search; the Future resolves to a List[SearchResult]."""
         diversity = round(float(diversity), 6)
@@ -105,8 +124,10 @@ class SearchBatcher:
             rejection_threshold,
             bool(use_reranker),
             rejection_cosine_floor,
+            rejection_query_floor,
             rejection_unseen_mass,
             rejection_unseen_cos,
+            rejection_unseen_judge,
         )
         item = _Item(
             key=key,
@@ -117,8 +138,10 @@ class SearchBatcher:
             use_reranker=bool(use_reranker),
             rejection_threshold=rejection_threshold,
             rejection_cosine_floor=rejection_cosine_floor,
+            rejection_query_floor=rejection_query_floor,
             rejection_unseen_mass=rejection_unseen_mass,
             rejection_unseen_cos=rejection_unseen_cos,
+            rejection_unseen_judge=rejection_unseen_judge,
         )
         with self._buf_cv:
             self._buf.append(item)
@@ -202,13 +225,25 @@ class SearchBatcher:
     def _hot_lane(batch: List[_Item]) -> bool:
         return batch[0].diversity == 0.0 and not batch[0].use_reranker
 
+    def _judge_lane(self, batch: List[_Item]) -> bool:
+        """Reranking on at blend weight 0 (the shipped quality
+        configuration: the judge as a rejection gate over the initial
+        order), diversity 0."""
+        it = batch[0]
+        return (
+            it.diversity == 0.0
+            and it.use_reranker
+            and self.engine.supports_judged_columnar(it.weights, it.use_reranker)
+        )
+
     def _execute(self, batch: List[_Item]) -> None:
+        top_k = batch[0].key[0]
         if self._hot_lane(batch):
-            self._execute_hot(batch, batch[0].key[0])
-        elif batch[0].diversity != 0.0:
-            raise NotImplementedError("MMR lane (diversity > 0) is not ported yet")
+            self._execute_hot(batch, top_k)
+        elif self._judge_lane(batch):
+            self._execute_judged(batch, top_k)
         else:
-            raise NotImplementedError("reranker/judged lane (use_reranker=True) is not ported yet")
+            self._execute_general(batch, top_k)
 
     def _execute_hot(self, batch: List[_Item], top_k: int) -> None:
         it0 = batch[0]
@@ -227,5 +262,68 @@ class SearchBatcher:
             else:
                 col = self.engine.fetch_columnar(pending)
                 results = [self.engine.results_from_columnar(col, qi) for qi in range(len(batch))]
+        for it, res in zip(batch, results):
+            it.future.set_result(res)
+
+    def _execute_judged(self, batch: List[_Item], top_k: int) -> None:
+        """First-stage dispatch -> columnar fetch -> one batched judge
+        dispatch -> logprob fetch -> gate. Any failure falls back to the
+        general lane, which carries the reference's judge-failure
+        semantics (rag_engine.rs:586-597), and is counted."""
+        queries = [it.query for it in batch]
+        it0 = batch[0]
+        results = None
+        with self.engine_lock.read():
+            try:
+                pending = self.engine.dispatch_search(
+                    queries, top_k, it0.weights,
+                    rejection_threshold=0.0, rejection_cosine_floor=0.0,
+                )
+                jc = None
+                if pending is not None:
+                    # the unseen gate rides judge_columnar: the 2-way rule
+                    # before the judge, or the 3-way rule in fetch_judged
+                    jc = self.engine.fetch_judged(self.engine.judge_columnar(
+                        pending,
+                        queries,
+                        weights=it0.weights,
+                        rejection_threshold=it0.rejection_threshold,
+                        rejection_cosine_floor=it0.rejection_cosine_floor,
+                        rejection_query_floor=it0.rejection_query_floor,
+                        rejection_unseen_mass=it0.rejection_unseen_mass,
+                        rejection_unseen_cos=it0.rejection_unseen_cos,
+                        rejection_unseen_judge=it0.rejection_unseen_judge,
+                    ))
+            except Exception:  # noqa: BLE001 - the judged lane degrades to the object lane
+                logger.warning("judged lane failed; falling back to the object lane", exc_info=True)
+                with self._fallback_lock:
+                    self.judged_fallbacks += 1
+                jc = None
+            if jc is not None:
+                results = [self.engine.results_from_judged(jc, qi) for qi in range(len(batch))]
+        if results is None:  # empty store, or the judged lane failed
+            # after the read lock is released: the lock is write-preferring,
+            # so a nested read could wait forever behind a queued writer
+            self._execute_general(batch, top_k)
+            return
+        for it, res in zip(batch, results):
+            it.future.set_result(res)
+
+    def _execute_general(self, batch: List[_Item], top_k: int) -> None:
+        it0 = batch[0]
+        with self.engine_lock.read():
+            results = self.engine.search_with_diversity_batch(
+                [it.query for it in batch],
+                top_k,
+                it0.diversity,
+                it0.weights,
+                rejection_threshold=it0.rejection_threshold,
+                use_reranker=it0.use_reranker,
+                rejection_cosine_floor=it0.rejection_cosine_floor,
+                rejection_query_floor=it0.rejection_query_floor,
+                rejection_unseen_mass=it0.rejection_unseen_mass,
+                rejection_unseen_cos=it0.rejection_unseen_cos,
+                rejection_unseen_judge=it0.rejection_unseen_judge,
+            )
         for it, res in zip(batch, results):
             it.future.set_result(res)

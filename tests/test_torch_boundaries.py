@@ -94,7 +94,8 @@ def test_kernel_build_is_content_addressed():
     a = build.library_path("score_segmax")
     assert a == build.library_path("score_segmax")
     assert os.path.dirname(a) == build.BUILD_DIR and "sm_90a" in " ".join(build.NVCC_FLAGS)
-    assert set(build.SIGNATURES) == {"score_segmax"}
+    assert set(build.SIGNATURES) == {"score_segmax", "attention"}
+    assert build.library_path("attention") != a
 
 
 def test_weights_resolve_like_jax(monkeypatch):

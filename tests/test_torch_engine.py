@@ -222,10 +222,38 @@ def test_batcher_other_lanes_raise_and_empty_store(tmp_path):
         assert b.search("anything", 5, 0.0, None, use_reranker=False) == []
         with pytest.raises(NotImplementedError, match="MMR"):
             b.search("anything", 5, 0.3, None, use_reranker=False)
-        with pytest.raises(NotImplementedError, match="reranker"):
-            b.search("anything", 5, 0.0, None, use_reranker=True)
+        with pytest.raises(NotImplementedError, match="MMR"):
+            b.search("anything", 5, 0.3, None, use_reranker=True)
+        # rerank-on requests have lanes now: an empty store answers []
+        assert b.search("anything", 5, 0.0, None, use_reranker=True) == []
     finally:
         b.stop()
+
+
+def _through_default(batcher, queries, top_k):
+    futs = [batcher.submit(q, top_k, 0.0, None) for q in queries]
+    return [f.result(timeout=60) for f in futs]
+
+
+@pytest.mark.parametrize("engines", [1024, 65536], indirect=True)
+def test_default_request_without_reranker_matches_jax(engines):
+    """A default request (use_reranker=True, diversity 0) on an engine with
+    no reranker takes the general lane in both batchers and gives the
+    first-stage results (the JAX batcher: batcher.py:403-427, :582-601)."""
+    j, t = engines
+    jb = JBatcher(j, JLock(), window_ms=20)
+    tb = TBatcher(t, TLock(), window_ms=20)
+    try:
+        want = _through_default(jb, QUERIES, 5)
+        got = _through_default(tb, QUERIES, 5)
+    finally:
+        jb.stop()
+        tb.stop()
+    for q, a, b in zip(QUERIES, got, want):
+        assert len(a) == 5
+        _same(_rows(a), _rows(b), q)
+    assert j.reranker is None and not t.has_reranker()
+    assert tb.judged_fallbacks == 0 and t.rerank_fallbacks == 0
 
 
 def test_batcher_coalesces_concurrent_requests(engines):

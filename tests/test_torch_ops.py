@@ -1,5 +1,5 @@
-"""Port parity: score + segment-max, segmented exact top-k and the hybrid
-first stage against the JAX package, on the CPU.
+"""Port parity: score + segment-max (masked and unmasked), segmented exact
+top-k and the hybrid first stage against the JAX package, on the CPU.
 
 The JAX side runs the Pallas kernel in interpret mode (tests/conftest.py
 sets RAG_TPU_PALLAS_INTERPRET); the port's wrapper takes its plain version
@@ -14,13 +14,20 @@ import torch
 
 from rust_local_rag_tpu.ops import fast_topk as jfast
 from rust_local_rag_tpu.ops import hybrid as jhybrid
-from rust_local_rag_tpu.ops.pallas_topk import fused_score_segmax_masked
+from rust_local_rag_tpu.ops.pallas_topk import (
+    fused_score_segmax as jax_fused_score_segmax,
+    fused_score_segmax_masked,
+    pallas_segmented_topk,
+)
 from rust_local_rag_tpu_torch.ops import fast_topk as tfast
 from rust_local_rag_tpu_torch.ops import hybrid as thybrid
 from rust_local_rag_tpu_torch.ops.score_segmax import (
     SEG,
+    fused_score_segmax,
+    fused_score_segmax_plain,
     score_segmax,
     score_segmax_plain,
+    segmented_topk,
 )
 
 # Tolerance of the f32 score comparisons: both sides sum D products of
@@ -99,6 +106,53 @@ def test_score_segmax_rejects_bad_inputs(rng, bad, err):
     m = torch.ones(1024, dtype=torch.bool)
     with pytest.raises(err):
         score_segmax(*bad(q, c, m))
+
+
+@pytest.mark.parametrize("corpus_dtype", ["float32", "bfloat16"])
+def test_fused_score_segmax_plain_matches_pallas(rng, corpus_dtype):
+    """The unmasked pass against the JAX kernel, whose segment maxima come
+    back transposed ([N/128, Q]); same tolerances as the masked form."""
+    q, n, d = 8, 16384, 64
+    queries = _unit(rng, q, d)
+    corpus = _unit(rng, n, d)
+    jc = jnp.asarray(corpus).astype(jnp.dtype(corpus_dtype))
+    j_scores, j_segmax_t = jax_fused_score_segmax(jnp.asarray(queries), jc, block_n=2048)
+    tc = _t(corpus).to(getattr(torch, corpus_dtype))
+    before = fused_score_segmax.launches
+    t_scores, t_segmax = fused_score_segmax(_t(queries), tc)
+    assert fused_score_segmax.launches == before  # CPU tensors: the plain version
+    p_scores, p_segmax = fused_score_segmax_plain(_t(queries), tc)
+    assert torch.equal(t_scores, p_scores) and torch.equal(t_segmax, p_segmax)
+    assert tuple(t_segmax.shape) == (q, n // SEG) and np.isfinite(t_scores.numpy()).all()
+    tol = SCORE_ATOL if corpus_dtype == "float32" else 2.0**-8
+    np.testing.assert_allclose(t_scores.numpy(), np.asarray(j_scores), rtol=0, atol=tol)
+    np.testing.assert_allclose(t_segmax.numpy(), np.asarray(j_segmax_t).T, rtol=0, atol=tol)
+    assert np.array_equal(t_segmax.numpy(), t_scores.numpy().reshape(q, n // SEG, SEG).max(axis=2))
+
+
+@pytest.mark.parametrize("k, s", [(10, 16), (100, 256), (5, 1)])
+def test_segmented_topk_matches_pallas_and_full_topk(rng, k, s):
+    q, n, d = 8, 16384, 128
+    queries = _unit(rng, q, d)
+    corpus = _unit(rng, n, d)
+    jv, ji = pallas_segmented_topk(jnp.asarray(queries), jnp.asarray(corpus), k, num_segments=s, block_n=2048)
+    tv, ti = segmented_topk(_t(queries), _t(corpus), k, num_segments=s)
+    assert ti.dtype == torch.int32 and tuple(tv.shape) == (q, k)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=SCORE_ATOL)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    fv, fi = torch.topk(_t(queries) @ _t(corpus).T, k, dim=1)
+    assert torch.equal(tv, fv) and torch.equal(ti.long(), fi)
+
+
+def test_fused_score_segmax_rejects_bad_inputs(rng):
+    q = _t(_unit(rng, 2, 16))
+    c = _t(_unit(rng, 1024, 16))
+    with pytest.raises(ValueError):
+        fused_score_segmax(q, c[:1000])
+    with pytest.raises(ValueError):
+        fused_score_segmax(q, c[:, :8])
+    with pytest.raises(ValueError):
+        fused_score_segmax(q.to("meta"), c.to("meta"))
 
 
 @pytest.mark.parametrize("k", [1, 10, 100])
