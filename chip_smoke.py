@@ -14,7 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Q in {1, 16, 128}, f32 and bf16 slabs, freed slots next to the top
    hits; the attention kernel against attention_plain at every shape the
    path gives it (reranker causal H 6 L 192, encoder H 8 L 64 / 256 / 512),
-   with a length-1 row and an all-masked row;
+   with a length-1 row and an all-masked row, then at edge shapes (L 1, 17,
+   100, 257, 500, 512; B 1 and 3; causal and not) and, under causal, with
+   masks that are not prefixes (key 0 masked and later keys valid, a row
+   masked in its first half, a row with no valid key);
 4. the slice: RagEngine.create over the committed encoder, add_document for
    PDFs written here, then seeded chunks through embed_in_batches and the
    store + lexical index until more than 32,768 chunks are live (slab
@@ -33,13 +36,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    reset just before and read just after (attention launches = 4 x judge
    forwards + 6 x query-encoder forwards); rerank_check replays every
    batch with the kernel off on the card and the first batch of each lane
-   on a CPU copy; every fallback counter must stay 0;
+   on a CPU copy; every fallback counter must stay 0; the judge forward is
+   timed with the kernel and without it at the lanes' 16-query batches;
 6. segmented_topk: the unmasked kernel's own path (bench.py's exact
    top-k), checked against torch.topk over the full scores;
-7. times (CUDA events, warm-up, median of repeats): each kernel, its plain
-   version and a library call against the bound; search latency per
-   burst, rerank burst latency per lane and a stage breakdown; ingest
-   rate; each printed as a JSON line naming the card.
+7. times (CUDA events around a back-to-back run of calls, after a
+   warm-up, median of repeats, per call): each kernel, its plain version
+   and a library call against the bound, and for attention also the span
+   of a single call (host enqueue included, the measure of earlier runs)
+   in one table; search latency per burst, rerank burst latency per lane
+   and a stage breakdown; ingest rate; each printed as a JSON line naming
+   the card.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -113,6 +120,10 @@ ATTN_TOL = 2e-2
 ATTN_SHAPES = [(16, 6, 192, True), (32, 6, 192, True), (256, 6, 192, True), (512, 6, 192, True),
                (1, 8, 64, False), (16, 8, 64, False), (128, 8, 256, False), (128, 8, 512, False)]
 ATTN_MAIN = (256, 6, 192, True)  # the judged lane's 16-query batch
+# edge shapes (B, H, L, causal): odd and long L, one and three batch rows
+ATTN_EDGE = [(b, 2, l, causal) for l in (1, 17, 100, 257, 500, 512) for b in (1, 3) for causal in (False, True)]
+# causal shapes checked again with masks that are not prefixes
+ATTN_SCATTERED = [s for s in ATTN_SHAPES if s[3]] + [(3, 2, l, True) for l in (1, 17, 100, 257, 512)]
 # rerank-on lanes: the quality configuration (eval_harness/configs/baseline.yaml)
 JUDGED_WEIGHTS = QueryWeights(reranker=0.0, initial=1.0)
 JUDGED_GATE = {"rejection_threshold": 0.0, "rejection_unseen_mass": 0.35, "rejection_unseen_cos": 0.6,
@@ -365,11 +376,22 @@ def check_unmasked(queries, corpus) -> float:
     return err
 
 
-def attention_case(seed: int, b: int, h: int, l: int, device):
+def attention_case(seed: int, b: int, h: int, l: int, device, scattered: bool = False):
     """q, k, v ~ N(0, 1) in bf16 and random key lengths: row 0 has one
-    valid key, the last row none (the finite bias makes it uniform)."""
+    valid key, the last row none (the finite bias makes it uniform).
+    scattered: masks that are not prefixes instead, 70% of keys valid at
+    random, with key 0 of row 0 masked (later keys valid), row 1 masked in
+    its first half, and the last row with no valid key."""
     gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn(b, h, l, 64, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+    if scattered:
+        mask = (torch.rand(b, l, generator=gen, device=device) < 0.7).to(torch.int32)
+        mask[0, 0] = 0
+        mask[0, 1:] |= (torch.arange(1, l, device=device) % 2).to(torch.int32)
+        if b > 2:
+            mask[1, : l // 2] = 0
+        mask[-1] = 0
+        return q, k, v, mask
     lens = torch.randint(1, l + 1, (b,), generator=gen, device=device)
     lens[0] = 1
     lens[-1] = 0
@@ -402,8 +424,29 @@ def check_attention(q, k, v, mask, causal: bool) -> float:
 # --------------------------------------------------------------- timing ----
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the card, each run between events."""
+def cuda_ms(fn, reps: int = 7, calls: int = 10, warmup: int = 3) -> float:
+    """Milliseconds a call of fn() takes on the card: events around a
+    back-to-back run of `calls` calls, so the device time of one call is
+    not hidden behind the host's enqueue of the next; median over reps."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds between events around one call of fn() on an
+    idle card: the host's enqueue included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -551,6 +594,25 @@ def check_fallbacks(engine, batcher, what: str) -> None:
         raise AssertionError(f"{what}: a fallback was taken {counters}")
 
 
+def judge_forward_times(judge, dev) -> dict:
+    """Milliseconds of one judge forward (forward_last_logits) on the card
+    with the attention kernel and without it, at the judged and object
+    lanes' 16-query batches (256 and 512 prompts at L 192, right-padded as
+    the reranker pads them; ids and lengths from a fixed seed)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model, l = judge.model, judge.judge_seq_len
+    out = {}
+    with torch.inference_mode():
+        for batch in (256, 512):
+            ids = torch.randint(4, model.cfg.vocab_size, (batch, l), generator=gen, device=dev, dtype=torch.int32)
+            lens = torch.randint(l // 2, l + 1, (batch,), generator=gen, device=dev)
+            mask = (torch.arange(l, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+            for fused in (True, False):
+                key = f"judge_forward_{batch}x{l}_{'kernel' if fused else 'plain'}_ms"
+                out[key] = cuda_ms(lambda: model.forward_last_logits(ids, mask, fused_attn=fused), reps=5, calls=3)
+    return out
+
+
 def encoder_fused_check(engine, rng, probs) -> dict:
     """1,024 ingest chunks (length-sorted batches of 128) and one 16-query
     batch through the encoder with the attention kernel and without it;
@@ -562,16 +624,21 @@ def encoder_fused_check(engine, rng, probs) -> dict:
         tuple(torch.from_numpy(x).to(engine.device) for x in model.tokenizer.encode_batch(texts[i : i + 128]))
         for i in range(0, 1024, 128)
     ]
-    out, times = {}, {}
+    out, times = {}, {True: [], False: []}
     fused_attention.launches = 0
     with torch.inference_mode():
         for fused in (True, False):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             out[fused] = torch.cat([model.encoder(ids, m, fused_attn=fused) for ids, m in batches])
-            torch.cuda.synchronize()
-            times[fused] = time.perf_counter() - t0
     chunk_launches = fused_attention.launches
+    with torch.inference_mode():  # then the encode time, kernel on and off in turns
+        for _ in range(3):
+            for fused in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for ids, m in batches:
+                    model.encoder(ids, m, fused_attn=fused)
+                torch.cuda.synchronize()
+                times[fused].append(time.perf_counter() - t0)
     if chunk_launches != depth * len(batches):
         raise AssertionError(f"encoder_fused: {chunk_launches} launches for {len(batches)} batches")
     cos_chunks = (out[True] * out[False]).sum(dim=1)
@@ -586,7 +653,8 @@ def encoder_fused_check(engine, rng, probs) -> dict:
     if not worst > 0.999:
         raise AssertionError(f"encoder_fused: cosine {worst} <= 0.999 between the kernel and plain encoders")
     return {"encoder_fused_min_cos_chunks": float(cos_chunks.min()), "encoder_fused_min_cos_queries": float(cos_q.min()),
-            "ingest1024_encoder_fused_s": times[True], "ingest1024_encoder_plain_s": times[False],
+            "ingest1024_encoder_fused_s": statistics.median(times[True]),
+            "ingest1024_encoder_plain_s": statistics.median(times[False]),
             "encoder_fused_launches": chunk_launches + depth}
 
 
@@ -916,6 +984,7 @@ def run_rerank(engine, batcher, dev, card: str, seconds: dict, rng, probs, tmp: 
         for lane in lanes:
             log({**rerank_stages(engine, rng, probs, lane), "card": card})
         check_fallbacks(engine, batcher, "rerank_breakdown")
+        log({**judge_forward_times(judge, dev), "card": card})
     os.environ.pop("RAG_TPU_FUSED_ATTN")
     return out
 
@@ -964,11 +1033,14 @@ def main(argv=None) -> int:
                 max_err_unmasked = max(max_err_unmasked, err)
                 log({"kernel_check": "fused_score_segmax", "dtype": str(dtype), "Q": q,
                      "N": N_SLAB, "D": DIM, "max_abs_err": err, "tol": SCORE_TOL, "card": card})
-        for i, (b, h, l, causal) in enumerate(ATTN_SHAPES):
-            err = check_attention(*attention_case(args.seed + i, b, h, l, dev), causal)
+        cases = ([(shape, False) for shape in ATTN_SHAPES + ATTN_EDGE]
+                 + [(shape, True) for shape in ATTN_SCATTERED])
+        for i, ((b, h, l, causal), scattered) in enumerate(cases):
+            err = check_attention(*attention_case(args.seed + i, b, h, l, dev, scattered), causal)
             max_err_attn = max(max_err_attn, err)
             log({"kernel_check": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
-                 "max_abs_err": err, "tol": ATTN_TOL, "card": card})
+                 "masks": "scattered" if scattered else "prefix", "max_abs_err": err, "tol": ATTN_TOL,
+                 "card": card})
         torch.cuda.synchronize()
 
     tmp = tempfile.mkdtemp(prefix="rag_port_smoke_")
@@ -1021,20 +1093,26 @@ def main(argv=None) -> int:
                 log(row)
                 if dtype == torch.float32 and q == 16:
                     unmasked_main = row
+        attn_table = []
         for i, (b, h, l, causal) in enumerate(ATTN_SHAPES):
             q_, k_, v_, m_ = attention_case(args.seed + i, b, h, l, dev)
             bias = attention_bias(m_, causal).to(torch.bfloat16)
-            ms = cuda_ms(lambda: fused_attention(q_, k_, v_, m_, causal))
+            kernel = lambda: fused_attention(q_, k_, v_, m_, causal)  # noqa: E731
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias)  # noqa: E731
+            ms = cuda_ms(kernel)
             plain_ms = cuda_ms(lambda: attention_plain(q_, k_, v_, m_, causal))
-            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias))
+            library_ms = cuda_ms(library)
             b_ms, b_by = attention_bound(b, h, l)
             row = {"kernel_time": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "card": card}
+                   "ms": ms, "call_ms": call_ms(kernel), "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_call_ms": call_ms(library), "bound_ms": b_ms, "bound_by": b_by, "card": card}
             log(row)
+            attn_table.append({k: row[k] for k in ("B", "H", "L", "causal", "ms", "call_ms", "bound_ms", "plain_ms",
+                                                   "library_ms", "library_call_ms")})
             if (b, h, l, causal) == ATTN_MAIN:
                 attn_main = row
             del q_, k_, v_, m_, bias
+        log({"attention_table": attn_table, "card": card})
         for burst, lat in result["latency"].items():
             log({"search_burst": burst, "top_k": TOP_K, "median_ms": statistics.median(lat),
                  "min_ms": min(lat), "max_ms": max(lat), "reps": len(lat), "card": card})

@@ -1,6 +1,6 @@
-"""Model-partitioned index persistence, packed npz format (port of the
-npz path of rust_local_rag_tpu/engine/persistence.py; the files are
-interchangeable with the JAX package's).
+"""Model-partitioned index persistence (port of
+rust_local_rag_tpu/engine/persistence.py; the files are interchangeable
+with the JAX package's).
 
   * one index file per embedding model, chunks_{model}.npz, with the model
     name sanitised for the file system;
@@ -11,8 +11,11 @@ interchangeable with the JAX package's).
     forces a reindex;
   * embeddings are re-normalised on load.
 
-The JAX package's JSON v2 export and its migration from the reference's
-JSON files are not part of this port yet.
+The native format is packed npz (one [N, D] f32 embedding matrix + one JSON
+metadata blob). The reference's JSON v2 format (chunks_{model}.json) is
+still read and migrated to npz, and a legacy chunks.json is migrated when
+its model matches; neither is ever deleted. export_reference_json writes
+the JSON v2 format.
 """
 
 from __future__ import annotations
@@ -51,6 +54,16 @@ def sanitize_model_name(model_name: str) -> str:
 def get_index_path(data_dir: str, model_name: str) -> str:
     """Native packed index path for a model (cf. rag_engine.rs:1465-1468)."""
     return os.path.join(data_dir, f"chunks_{sanitize_model_name(model_name)}.npz")
+
+
+def get_reference_json_path(data_dir: str, model_name: str) -> str:
+    """The reference's model-specific JSON path (for migration)."""
+    return os.path.join(data_dir, f"chunks_{sanitize_model_name(model_name)}.json")
+
+
+def get_legacy_path(data_dir: str) -> str:
+    """The reference's pre-partitioning path (rag_engine.rs:1471-1473)."""
+    return os.path.join(data_dir, "chunks.json")
 
 
 @dataclass
@@ -125,32 +138,135 @@ def save_index(data_dir: str, state: IndexState) -> str:
     return path
 
 
+def export_reference_json(data_dir: str, state: IndexState) -> str:
+    """Write a reference-compatible v2 JSON index (round-trip support)."""
+    chunks = {}
+    for i, m in enumerate(state.metas):
+        chunks[m.id] = {
+            "id": m.id,
+            "document_name": m.document_name,
+            "text": m.text,
+            "embedding": [float(x) for x in state.embeddings[i]],
+            "chunk_index": m.chunk_index,
+            "page_number": m.page_number,
+            "section": m.section,
+            "metadata": _meta_to_reference(m.metadata),
+        }
+    blob = {
+        "version": SCHEMA_VERSION,
+        "model": state.model,
+        "chunks": chunks,
+        "needs_reindex": state.needs_reindex,
+        "document_hashes": state.document_hashes,
+    }
+    path = get_reference_json_path(data_dir, state.model)
+    _atomic_write(path, json.dumps(blob, indent=2).encode("utf-8"))
+    return path
+
+
+def _meta_to_reference(md: dict) -> dict:
+    """ChunkMetadata shape (rag_engine.rs:35-42)."""
+    return {
+        "page_range": md.get("page_range"),
+        "sentence_range": md.get("sentence_range"),
+        "section_title": md.get("section_title"),
+        "token_count": md.get("token_count", 0),
+        "overlap_with_previous": md.get("overlap_with_previous", 0),
+    }
+
+
 class LoadResult:
     """Outcome of load_index: state or a needs_reindex signal."""
 
-    def __init__(self, state: Optional[IndexState], needs_reindex: bool):
+    def __init__(
+        self,
+        state: Optional[IndexState],
+        needs_reindex: bool,
+        migrated: bool = False,
+    ):
         self.state = state
         self.needs_reindex = needs_reindex
+        self.migrated = migrated
 
 
 def load_index(data_dir: str, model_name: str) -> LoadResult:
-    """The npz index for this model, a needs_reindex signal when it is
-    corrupt or outdated, or a fresh start when there is none."""
+    """Load strategy (rag_engine.rs:1543-1651):
+    1. native npz for this model;
+    2. the reference's model-specific JSON (migrate to npz);
+    3. legacy chunks.json only when its model matches (migrate);
+    4. otherwise start fresh. Never delete another model's data.
+    """
     npz_path = get_index_path(data_dir, model_name)
-    if not os.path.exists(npz_path):
-        logger.info("No existing index for model '%s'. Starting fresh.", model_name)
-        return LoadResult(None, False)
-    try:
-        return LoadResult(_load_npz(npz_path, model_name), False)
-    except Exception as e:  # noqa: BLE001 - corrupt: keep the file, reindex
-        logger.warning(
-            "Failed to parse index at %s: %s. Starting fresh for model "
-            "'%s' and marking for reindex.",
-            npz_path,
-            e,
-            model_name,
-        )
-        return LoadResult(None, True)
+    if os.path.exists(npz_path):
+        try:
+            return LoadResult(_load_npz(npz_path, model_name), False)
+        except Exception as e:  # noqa: BLE001 - corrupt: keep the file, reindex
+            logger.warning(
+                "Failed to parse index at %s: %s. Starting fresh for model "
+                "'%s' and marking for reindex.",
+                npz_path,
+                e,
+                model_name,
+            )
+            return LoadResult(None, True)
+
+    json_path = get_reference_json_path(data_dir, model_name)
+    if os.path.exists(json_path):
+        logger.info("Migrating reference JSON index %s to packed format", json_path)
+        try:
+            state = _load_reference_json(json_path, expect_model=model_name)
+        except _VersionTooOld:
+            return LoadResult(None, True)
+        except Exception as e:  # noqa: BLE001
+            logger.warning(
+                "Failed to parse reference index %s: %s. Marking for reindex.",
+                json_path,
+                e,
+            )
+            return LoadResult(None, True)
+        if state is not None:
+            save_index(data_dir, state)  # migrate; JSON preserved for safety
+            return LoadResult(state, state.needs_reindex, migrated=True)
+
+    legacy = get_legacy_path(data_dir)
+    if os.path.exists(legacy):
+        try:
+            with open(legacy, "r", encoding="utf-8") as f:
+                raw = json.load(f)
+        except Exception as e:  # noqa: BLE001
+            logger.warning("Legacy index unreadable: %s", e)
+            return LoadResult(None, False)
+        model = raw.get("model") if isinstance(raw, dict) else None
+        if model == model_name:
+            logger.info(
+                "Legacy index matches current model '%s'. Migrating.", model_name
+            )
+            try:
+                state = _parse_reference_blob(raw, expect_model=model_name)
+            except _VersionTooOld:
+                return LoadResult(None, True)
+            except Exception as e:  # noqa: BLE001
+                logger.warning("Failed to parse legacy index: %s", e)
+                return LoadResult(None, False)
+            if state is not None:
+                save_index(data_dir, state)
+                return LoadResult(state, state.needs_reindex, migrated=True)
+        elif model is not None:
+            logger.info(
+                "Legacy index belongs to model '%s', not '%s'. Preserved.",
+                model,
+                model_name,
+            )
+        else:
+            # very old raw-chunks format: reindex required
+            if isinstance(raw, dict) and raw:
+                logger.warning(
+                    "Found legacy chunks without model info; reindex required."
+                )
+                return LoadResult(None, True)
+
+    logger.info("No existing index for model '%s'. Starting fresh.", model_name)
+    return LoadResult(None, False)
 
 
 class _VersionTooOld(Exception):
@@ -186,6 +302,52 @@ def _load_npz(path: str, expect_model: str) -> IndexState:
         metas=metas,
         needs_reindex=bool(meta.get("needs_reindex", False)),
         document_hashes=dict(meta.get("document_hashes") or {}),
+    )
+    _post_load_checks(state)
+    return state
+
+
+def _load_reference_json(path: str, expect_model: str) -> Optional[IndexState]:
+    with open(path, "r", encoding="utf-8") as f:
+        raw = json.load(f)
+    return _parse_reference_blob(raw, expect_model)
+
+
+def _parse_reference_blob(raw: dict, expect_model: str) -> Optional[IndexState]:
+    version = int(raw.get("version", 0))
+    if version < SCHEMA_VERSION:
+        # Outdated: reindex to capture provenance (rag_engine.rs:1664-1673)
+        raise _VersionTooOld(str(version))
+    chunks = raw.get("chunks", {})
+    metas: List[ChunkMeta] = []
+    rows: List[np.ndarray] = []
+    dim: Optional[int] = None
+    for cid, c in chunks.items():
+        v = np.asarray(c.get("embedding", []), dtype=np.float32)
+        if dim is None:
+            dim = v.shape[0]
+        if v.shape[0] != dim:
+            raise ValueError("inconsistent embedding dims in reference index")
+        rows.append(v)
+        metas.append(
+            ChunkMeta(
+                id=c.get("id", cid),
+                document_name=c.get("document_name", ""),
+                text=c.get("text", ""),
+                chunk_index=int(c.get("chunk_index", 0)),
+                page_number=int(c.get("page_number", 0)),
+                section=c.get("section"),
+                metadata=c.get("metadata") or {},
+            )
+        )
+    emb = np.stack(rows) if rows else np.zeros((0, dim or 0), dtype=np.float32)
+    _normalize_rows_inplace(emb)
+    state = IndexState(
+        model=raw.get("model", expect_model),
+        embeddings=emb,
+        metas=metas,
+        needs_reindex=bool(raw.get("needs_reindex", False)),
+        document_hashes=dict(raw.get("document_hashes") or {}),
     )
     _post_load_checks(state)
     return state

@@ -899,8 +899,14 @@ class RagEngine:
         )
 
     def load_from_disk(self) -> None:
-        """Replace the resident index with the saved one of this model."""
-        res = persistence.load_index(self.data_dir, self.embedding_model())
+        """Replace the resident index with the saved one of this model (the
+        npz, else the reference's JSON or a model-matched legacy
+        chunks.json, migrated to npz)."""
+        try:
+            res = persistence.load_index(self.data_dir, self.embedding_model())
+        except OSError as e:  # the migration's npz write failed
+            logger.warning("Could not load existing data: %s", e)
+            return
         if res.state is None:
             self._needs_reindex = res.needs_reindex
             return

@@ -2,7 +2,8 @@
 (port of rust_local_rag_tpu/models/embedding_service.py, the parts the
 search and ingest path use).
 
-  * a 1000-entry LRU cache of query embeddings;
+  * a 1000-entry LRU cache of query embeddings (utils/lru.LruCache, locked,
+    so the batcher's concurrent batches can share it);
   * embed_in_batches: length-sorted batches of EMBEDDING_BATCH_SIZE with
     the original order restored, a cooldown between batches, a per-batch
     progress callback and a per-batch timeout;
@@ -15,7 +16,6 @@ from __future__ import annotations
 import concurrent.futures
 import logging
 import time
-from collections import OrderedDict
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -25,6 +25,7 @@ from rust_local_rag_tpu_torch.config import (
     get_batch_size,
     get_batch_timeout_s,
 )
+from rust_local_rag_tpu_torch.utils.lru import LruCache
 
 logger = logging.getLogger(__name__)
 
@@ -36,8 +37,7 @@ class EmbeddingService:
         """`model` provides .encode(texts) -> [n, d] f32, .model_name and
         .dim, and optionally .encode_queries and .encode_queries_device."""
         self._model = model
-        self._cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
-        self._cache_size = query_cache_size
+        self._cache: LruCache[str, np.ndarray] = LruCache(query_cache_size)
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
 
     @property
@@ -90,21 +90,13 @@ class EmbeddingService:
     def get_query_embeddings(self, texts: Sequence[str]) -> np.ndarray:
         """All cache misses are embedded in ONE model call; every result
         enters the LRU."""
-        out: List[Optional[np.ndarray]] = []
-        for t in texts:
-            hit = self._cache.get(t)
-            if hit is not None:
-                self._cache.move_to_end(t)
-            out.append(hit)
+        out: List[Optional[np.ndarray]] = [self._cache.get(t) for t in texts]
         missing = [i for i, e in enumerate(out) if e is None]
         if missing:
             embs = self._encode_queries([texts[i] for i in missing])
             for j, i in enumerate(missing):
                 out[i] = embs[j]
-                self._cache[texts[i]] = embs[j]
-                self._cache.move_to_end(texts[i])
-                while len(self._cache) > self._cache_size:
-                    self._cache.popitem(last=False)
+                self._cache.put(texts[i], embs[j])
         if not out:
             return np.zeros((0, self.dim), dtype=np.float32)
         return np.stack(out)  # type: ignore[arg-type]

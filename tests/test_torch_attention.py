@@ -61,6 +61,35 @@ def test_attention_plain_matches_pallas_kernel(b, h, l, dh, causal):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("b,h,l", [(3, 2, 64), (4, 2, 192), (3, 1, 100)])
+def test_non_prefix_causal_masks_match_pallas_kernel(b, h, l):
+    """Masks that are not prefixes, under causal: row 0 has key 0 masked and
+    later keys valid, row 1 is masked in its first half, the last row has no
+    valid key, the rest are random. A query whose keys up to its position
+    are all masked sees -1e9 on those keys and on the valid keys above the
+    diagonal alike (f32 rounds s/8 - 1e9 to -1e9), so the TPU kernel spreads
+    it over both; attention_plain, the function the CUDA kernel is held to,
+    must do the same. Same tolerance as above: atol = rtol = 2e-2."""
+    q, k, v, _ = _inputs(b * 1000 + l, b, h, l, 64)
+    rng = np.random.default_rng(l)
+    mask = (rng.random((b, l)) < 0.7).astype(np.int32)
+    mask[0, 0] = 0
+    mask[0, 1::2] = 1
+    mask[1, : l // 2] = 0
+    mask[-1] = 0
+    got, want = _both(q, k, v, mask, True)
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    # row 0, query 0: key 0 is masked, key 1 (valid, above the diagonal)
+    # and every key above it score -1e9 or -2e9: the mean of V over the
+    # keys at -1e9, the masked ones up to 0 and the valid ones above it
+    vb = torch.from_numpy(v[0]).to(torch.bfloat16).float()
+    at_neg = torch.from_numpy(mask[0] > 0)
+    at_neg[0] = True
+    np.testing.assert_allclose(got[0, :, 0], vb[:, at_neg].mean(dim=1).numpy(), atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_all_masked_row_is_uniform(causal):
     """The finite bias keeps an all-masked row defined: each query row

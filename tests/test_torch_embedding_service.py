@@ -1,0 +1,121 @@
+"""The port's query-embedding cache against the JAX package's: a locked
+LRU (utils/lru.LruCache) shared by concurrent batches, with the JAX
+cache's eviction order and its "every miss in one model call" contract.
+
+The model is the JAX package's HashEncoder (numpy only, no device path),
+so get_query_embeddings goes through the cache in both services."""
+
+import sys
+import threading
+
+import jax  # noqa: F401
+import numpy as np
+import pytest
+
+from rust_local_rag_tpu.models.embedding_service import EmbeddingService as JService
+from rust_local_rag_tpu.models.fake_encoder import HashEncoder
+from rust_local_rag_tpu.utils.lru import LruCache as JLru
+from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService as TService
+from rust_local_rag_tpu_torch.utils.lru import LruCache as TLru
+
+DIM = 32
+
+
+class CountingEncoder(HashEncoder):
+    """HashEncoder that records the texts of every model call."""
+
+    def __init__(self):
+        super().__init__(dim=DIM)
+        self.calls = []
+
+    def encode(self, texts):
+        self.calls.append(list(texts))
+        return super().encode(texts)
+
+
+def test_query_cache_is_safe_under_concurrent_batches():
+    """8 threads over a 2-entry cache: every get races other threads' puts
+    and evictions. Nothing may raise, and every row is the model's own."""
+    model = HashEncoder(dim=DIM)
+    svc = TService(model, query_cache_size=2)
+    vocab = [f"query {i}" for i in range(6)]
+    want = {t: model.encode([t])[0] for t in vocab}
+    errors, start = [], threading.Barrier(8)
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        try:
+            start.wait(timeout=30)
+            for _ in range(300):
+                texts = [vocab[i] for i in rng.integers(0, len(vocab), size=3)]
+                out = svc.get_query_embeddings(texts)
+                for t, row in zip(texts, out):
+                    np.testing.assert_array_equal(row, want[t])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(s,)) for s in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads often, so the races show
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    assert len(svc._cache) <= 2
+
+
+def test_lru_matches_jax_operation_by_operation():
+    """The same puts and gets leave the same keys, in the same order, in
+    the port's LruCache and the JAX one (a get moves a key to the young end,
+    a put of a present key too; the oldest goes first)."""
+    rng = np.random.default_rng(3)
+    t, j = TLru(3), JLru(3)
+    for _ in range(400):
+        key = int(rng.integers(0, 6))
+        if rng.random() < 0.5:
+            assert t.get(key) == j.get(key)
+        else:
+            t.put(key, key * 10)
+            j.put(key, key * 10)
+        assert list(t._data.items()) == list(j._data.items())
+        assert len(t) == len(j)
+    t.clear()
+    j.clear()
+    assert len(t) == len(j) == 0
+    with pytest.raises(ValueError, match="capacity"):
+        TLru(0)
+
+
+def test_put_then_get_keeps_the_lru_order_of_jax():
+    """Through the services: a, b cached; a read again (a is young); c
+    evicts b in both, so b is a miss and a a hit."""
+    services = [(cls, CountingEncoder()) for cls in (TService, JService)]
+    calls = []
+    for cls, model in services:
+        svc = cls(model, query_cache_size=2)
+        svc.get_query_embeddings(["a", "b"])
+        svc.get_query_embeddings(["a"])
+        svc.get_query_embeddings(["c"])
+        svc.get_query_embeddings(["a", "b"])
+        calls.append(model.calls)
+    assert calls[0] == calls[1] == [["a", "b"], ["c"], ["b"]]
+
+
+def test_every_miss_is_embedded_in_one_model_call_like_jax():
+    rng = np.random.default_rng(9)
+    bursts = [[f"q{i}" for i in rng.integers(0, 12, size=5)] for _ in range(20)]
+    outs, calls = [], []
+    for cls in (TService, JService):
+        model = CountingEncoder()
+        svc = cls(model, query_cache_size=4)
+        outs.append([svc.get_query_embeddings(b) for b in bursts])
+        calls.append(model.calls)
+    assert calls[0] == calls[1]
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    assert TService(CountingEncoder()).get_query_embeddings([]).shape == (0, DIM)

@@ -10,6 +10,7 @@ Slab capacity 65536 sends both through their score + segment-max branch
 (Pallas in interpret mode, the port's plain version on the CPU).
 """
 
+import os
 import threading
 
 import jax  # noqa: F401
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import pdfgen
+from rust_local_rag_tpu.engine import persistence as jper
 from rust_local_rag_tpu.engine.chunk_store import ChunkStore as JStore
 from rust_local_rag_tpu.engine.rag_engine import RagEngine as JEngine
 from rust_local_rag_tpu.models.embedding_service import EmbeddingService as JService
@@ -201,6 +203,33 @@ def test_reload_and_jax_index_interchange(engines, tmp_path):
         "documents": 6, "chunks": len(t.store), "status": "ready",
         "embedding_model": "fake-hash-encoder", "reranker_model": None, "search_mode": "exact",
     }
+
+
+@pytest.mark.parametrize("layout", ["reference_json", "legacy_chunks_json"])
+def test_reference_json_data_dir_answers_like_jax(engines, tmp_path, layout):
+    """A data directory holding only the reference's JSON index (the JAX
+    package's export_reference_json), or only a legacy chunks.json of this
+    model, is migrated by both engines: the same chunks, fingerprints and
+    reindex flag, and the same answers as the engine that wrote it."""
+    j, t = engines
+    emb, metas = j.store.snapshot_host()
+    state = jper.IndexState(model=j.embedding_model(), embeddings=emb, metas=metas,
+                            document_hashes=dict(j.document_hashes))
+    dirs = {side: tmp_path / f"{layout}_{side}" for side in ("port", "jax")}
+    for d in dirs.values():
+        path = jper.export_reference_json(str(d), state)
+        if layout == "legacy_chunks_json":
+            os.replace(path, jper.get_legacy_path(str(d)))
+    port = TEngine(str(dirs["port"]), t.embedding_service, device="cpu")
+    ref = JEngine(str(dirs["jax"]), j.embedding_service)
+    assert len(port.store) == len(ref.store) == len(j.store) > 0
+    assert port.document_hashes == ref.document_hashes == j.document_hashes
+    assert port._needs_reindex == ref.needs_reindex() is False
+    assert sorted(os.listdir(dirs["port"])) == sorted(os.listdir(dirs["jax"]))
+    for q in QUERIES:
+        want = _rows(j.search(q, 5, use_reranker=False))
+        _same(_rows(port.search(q, 5)), want, f"{layout} port {q}")
+        _same(_rows(ref.search(q, 5, use_reranker=False)), want, f"{layout} jax {q}")
 
 
 def test_add_document_replace_and_skip(engines):

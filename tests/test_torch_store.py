@@ -1,6 +1,7 @@
 """The port's chunk store and npz persistence against the JAX package's:
 the same operations give the same slots, masks, rows and files."""
 
+import json
 import os
 
 import jax  # noqa: F401
@@ -131,3 +132,126 @@ def test_persistence_corrupt_missing_and_unfingerprinted(tmp_path, rng):
     st.document_hashes = {}
     tper.save_index(d, st)
     assert tper.load_index(d, "m").state.needs_reindex  # no fingerprints
+
+
+# ----- the reference's JSON index and the legacy chunks.json (migration) -----
+
+
+def _load_both(tmp_path, files: dict, model: str):
+    """The same data directory (files: name -> bytes) loaded by the port and
+    by the JAX package, each in its own copy (a migration writes the npz)."""
+    out = []
+    for side, mod in (("t", tper), ("j", jper)):
+        d = tmp_path / side
+        d.mkdir()
+        for name, data in files.items():
+            (d / name).write_bytes(data)
+        out.append((mod.load_index(str(d), model), sorted(os.listdir(d))))
+    return out
+
+
+def _same_result(a, b):
+    assert (a.state is None) == (b.state is None)
+    assert a.needs_reindex == b.needs_reindex and a.migrated == b.migrated
+    if a.state is not None:
+        assert a.state.model == b.state.model
+        np.testing.assert_array_equal(a.state.embeddings, b.state.embeddings)
+        assert [vars(m) for m in a.state.metas] == [vars(m) for m in b.state.metas]
+        assert a.state.document_hashes == b.state.document_hashes
+        assert a.state.needs_reindex == b.state.needs_reindex
+
+
+def _legacy_blob(rng, model, version=2, hashes=True):
+    st = _state(jper.IndexState, JMeta, rng, n=4, model=model or "m")
+    blob = {
+        "version": version,
+        "chunks": {
+            m.id: {"id": m.id, "document_name": m.document_name, "text": m.text,
+                   "embedding": [float(x) for x in st.embeddings[i]], "chunk_index": m.chunk_index,
+                   "page_number": m.page_number, "section": m.section, "metadata": m.metadata}
+            for i, m in enumerate(st.metas)
+        },
+        "needs_reindex": False,
+        "document_hashes": st.document_hashes if hashes else {},
+    }
+    if model is not None:
+        blob["model"] = model
+    return json.dumps(blob).encode()
+
+
+@pytest.mark.parametrize("hashes", [True, False])
+def test_reference_json_written_by_jax_loads_like_jax(tmp_path, rng, hashes):
+    """A data directory holding only the JAX package's export_reference_json
+    file migrates in the port to the texts, metadata and embeddings (exact)
+    the JAX load_index gives, writes the npz and keeps the JSON; the port's
+    own export writes the same file."""
+    st = _state(jper.IndexState, JMeta, rng, model="m/odel:1")
+    if not hashes:  # no fingerprints: loaded, and marked for reindex
+        st.document_hashes = {}
+    src = tmp_path / "src"
+    path = jper.export_reference_json(str(src), st)
+    assert os.path.basename(path) == os.path.basename(tper.get_reference_json_path(str(src), st.model))
+    with open(path, "rb") as f:
+        data = f.read()
+    (a, files_a), (b, files_b) = _load_both(tmp_path, {os.path.basename(path): data}, st.model)
+    _same_result(a, b)
+    assert a.migrated and a.state is not None and a.needs_reindex == (not hashes)
+    assert [m.text for m in a.state.metas] == [m.text for m in st.metas]
+    np.testing.assert_allclose(np.linalg.norm(a.state.embeddings, axis=1), 1.0, rtol=1e-6)
+    assert files_a == files_b == sorted([os.path.basename(path), "chunks_m_odel_1.npz"])
+    # each side's migrated npz reloads as an npz, to the same state in both
+    # (rows re-normalised again on load, so equal to the first load up to
+    # rounding)
+    again_t = tper.load_index(str(tmp_path / "t"), st.model)
+    again_j = jper.load_index(str(tmp_path / "j"), st.model)
+    _same_result(again_t, again_j)
+    assert not again_t.migrated
+    np.testing.assert_allclose(again_t.state.embeddings, a.state.embeddings, rtol=0, atol=1e-6)
+    tst = tper.IndexState(model=st.model, embeddings=st.embeddings,
+                          metas=[TMeta(**vars(m)) for m in st.metas], document_hashes=st.document_hashes)
+    with open(tper.export_reference_json(str(tmp_path / "mine"), tst), "rb") as f:
+        assert f.read() == data
+
+
+@pytest.mark.parametrize("case", ["matching_model", "other_model", "no_model_field", "version_1",
+                                  "no_fingerprints"])
+def test_legacy_chunks_json_like_jax(tmp_path, rng, case):
+    """The legacy chunks.json: migrated when its model matches, kept and
+    ignored for another model, needs_reindex without model info or below
+    version 2 - in both packages alike; the file is never deleted."""
+    blob = {
+        "matching_model": lambda: _legacy_blob(rng, "m"),
+        "other_model": lambda: _legacy_blob(rng, "other"),
+        "no_model_field": lambda: _legacy_blob(rng, None),
+        "version_1": lambda: _legacy_blob(rng, "m", version=1),
+        "no_fingerprints": lambda: _legacy_blob(rng, "m", hashes=False),
+    }[case]()
+    (a, files_a), (b, files_b) = _load_both(tmp_path, {"chunks.json": blob}, "m")
+    _same_result(a, b)
+    assert files_a == files_b and "chunks.json" in files_a
+    want = {"matching_model": (True, False), "other_model": (False, False), "no_model_field": (False, True),
+            "version_1": (False, True), "no_fingerprints": (True, True)}[case]
+    assert (a.state is not None, a.needs_reindex) == want
+    if a.state is not None:
+        assert a.migrated and "chunks_m.npz" in files_a
+
+
+@pytest.mark.parametrize("case", ["garbage", "truncated", "version_1", "ragged_dims", "legacy_garbage"])
+def test_unreadable_reference_json_like_jax(tmp_path, rng, case):
+    """An unreadable or outdated reference JSON marks the index for reindex
+    and is kept on disk; an unreadable legacy chunks.json starts fresh - as
+    the JAX load_index does."""
+    good = _legacy_blob(rng, "m")
+    ragged = json.loads(good)
+    next(iter(ragged["chunks"].values()))["embedding"].append(0.5)
+    name, data = {
+        "garbage": ("chunks_m.json", b"\x00 not json"),
+        "truncated": ("chunks_m.json", good[: len(good) // 2]),
+        "version_1": ("chunks_m.json", _legacy_blob(rng, "m", version=1)),
+        "ragged_dims": ("chunks_m.json", json.dumps(ragged).encode()),
+        "legacy_garbage": ("chunks.json", b"{{{"),
+    }[case]
+    (a, files_a), (b, files_b) = _load_both(tmp_path, {name: data}, "m")
+    _same_result(a, b)
+    assert a.state is None and a.needs_reindex == (case != "legacy_garbage")
+    assert files_a == files_b == [name]
