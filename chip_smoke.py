@@ -12,12 +12,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. kernel vs plain: the masked and the unmasked score + segment-max
    kernels against their plain versions on the card, N = 65,536, D = 768,
    Q in {1, 16, 128}, f32 and bf16 slabs, freed slots next to the top
-   hits; the attention kernel against attention_plain at every shape the
-   path gives it (reranker causal H 6 L 192, encoder H 8 L 64 / 256 / 512),
-   with a length-1 row and an all-masked row, then at edge shapes (L 1, 17,
-   100, 257, 500, 512; B 1 and 3; causal and not) and, under causal, with
-   masks that are not prefixes (key 0 masked and later keys valid, a row
-   masked in its first half, a row with no valid key);
+   hits; then at the edges of the Q <= 16 stream: every query tile and the
+   step to the Q > 16 body (Q 1, 2, 3, 5, 8, 9, 15, 16, 17), N 65,536 and
+   65,920 (not a multiple of the stream's stride), D 768 and 776 (ragged
+   against its tile depth), with one segment wholly freed, and slabs with
+   every slot freed; the attention kernel against attention_plain at every
+   shape the path gives it (reranker causal H 6 L 192, encoder H 8 L 64 /
+   256 / 512), with a length-1 row and an all-masked row, then at edge
+   shapes (L 1, 17, 100, 257, 500, 512; B 1 and 3; causal and not) and,
+   under causal, with masks that are not prefixes (key 0 masked and later
+   keys valid, a row masked in its first half, a row with no valid key);
 4. the slice: RagEngine.create over the committed encoder, add_document for
    PDFs written here, then seeded chunks through embed_in_batches and the
    store + lexical index until more than 32,768 chunks are live (slab
@@ -42,11 +46,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    top-k), checked against torch.topk over the full scores;
 7. times (CUDA events around a back-to-back run of calls, after a
    warm-up, median of repeats, per call): each kernel, its plain version
-   and a library call against the bound, and for attention also the span
-   of a single call (host enqueue included, the measure of earlier runs)
-   in one table; search latency per burst, rerank burst latency per lane
-   and a stage breakdown; ingest rate; each printed as a JSON line naming
-   the card.
+   and a library call against the bound (score + segment-max at Q 1, 2,
+   4, 8, 16 and 128, f32 and bf16, with a plain read of the slab beside
+   them; then checked and timed at bench.py's shard, N 1,245,184, Q 16),
+   and for attention also the span of a single call (host enqueue
+   included, the measure of earlier runs) in one table; search latency
+   per burst, rerank burst latency per lane and a stage breakdown; ingest
+   rate; each printed as a JSON line naming the card.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -95,6 +101,13 @@ from rust_local_rag_tpu_torch.utils.rwlock import RwLock
 
 N_SLAB = 65536
 DIM = 768
+# edges of the Q <= 16 stream: every query tile and the step to the Q > 16
+# body; a row count that is not a multiple of its stride (132 SMs x 128
+# rows) and a depth that is ragged against its tile (64 f32, 128 bf16)
+EDGE_Q = (1, 2, 3, 5, 8, 9, 15, 16, 17)
+EDGE_SHAPES = ((65536, 768), (65920, 768), (65536, 776), (65920, 776))
+TIME_Q = (1, 2, 4, 8, 16, 128)
+N_BENCH = 1245184  # bench.py's 1,250,000-row shard cut to a multiple of 16,384
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # bf16 tensor cores, dense, H100 SXM data sheet
@@ -266,18 +279,29 @@ def unit_rows(gen: torch.Generator, n: int, d: int, device) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
-def kernel_case(seed: int, q: int, dtype: torch.dtype, device):
+def kernel_case(seed: int, q: int, dtype: torch.dtype, device, n: int = N_SLAB, d: int = DIM,
+                freed: str = "some"):
     """Unit corpus and queries near corpus rows; 10% of slots freed, plus
-    the neighbours of every query's source row (next to its top hit)."""
+    the neighbours of every query's source row (next to its top hit).
+    freed="segment" also frees segment 1 wholly, "all" every slot."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    corpus32 = unit_rows(gen, N_SLAB, DIM, device)
-    src = torch.randint(0, N_SLAB, (q,), generator=gen, device=device)
-    queries = corpus32[src] + 0.05 * unit_rows(gen, q, DIM, device)
+    corpus32 = unit_rows(gen, n, d, device)
+    src = torch.randint(0, n, (q,), generator=gen, device=device)
+    queries = corpus32[src] + 0.05 * unit_rows(gen, q, d, device)
     queries = queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
-    mask = torch.rand(N_SLAB, generator=gen, device=device) > 0.1
-    mask[(src + 1) % N_SLAB] = False
-    mask[(src - 1) % N_SLAB] = False
+    mask = torch.rand(n, generator=gen, device=device) > 0.1
+    mask[(src + 1) % n] = False
+    mask[(src - 1) % n] = False
+    if freed == "segment":
+        mask[SEG : 2 * SEG] = False
+    elif freed == "all":
+        mask[:] = False
     return queries.contiguous(), corpus32.to(dtype).contiguous(), mask
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b|, 0.0 over no elements (a slab with every slot freed)."""
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
 def check_kernel(queries, corpus, mask) -> float:
@@ -285,8 +309,8 @@ def check_kernel(queries, corpus, mask) -> float:
     scores, segmax = score_segmax(queries, corpus, mask)
     p_scores, p_segmax = score_segmax_plain(queries, corpus, mask)
     torch.cuda.synchronize()
-    q = queries.shape[0]
-    if tuple(scores.shape) != (q, N_SLAB) or tuple(segmax.shape) != (q, N_SLAB // SEG):
+    q, n = queries.shape[0], corpus.shape[0]
+    if tuple(scores.shape) != (q, n) or tuple(segmax.shape) != (q, n // SEG):
         raise AssertionError(f"kernel shapes {tuple(scores.shape)} {tuple(segmax.shape)}")
     want_inf = (~mask)[None, :].expand(q, -1)
     if not torch.equal(torch.isneginf(scores), want_inf):
@@ -294,8 +318,8 @@ def check_kernel(queries, corpus, mask) -> float:
     if not torch.equal(segmax, scores.view(q, -1, SEG).amax(dim=2)):
         raise AssertionError("kernel: segmax is not the max of its own scores")
     live = ~want_inf
-    err = float((scores[live] - p_scores[live]).abs().max())
-    err_seg = float((segmax[torch.isfinite(p_segmax)] - p_segmax[torch.isfinite(p_segmax)]).abs().max())
+    err = max_abs(scores[live], p_scores[live])
+    err_seg = max_abs(segmax[torch.isfinite(p_segmax)], p_segmax[torch.isfinite(p_segmax)])
     if not torch.equal(torch.isneginf(segmax), torch.isneginf(p_segmax)):
         raise AssertionError("kernel: segmax -inf pattern differs from plain")
     err = max(err, err_seg)
@@ -363,8 +387,8 @@ def check_unmasked(queries, corpus) -> float:
     scores, segmax = fused_score_segmax(queries, corpus)
     p_scores, p_segmax = fused_score_segmax_plain(queries, corpus)
     torch.cuda.synchronize()
-    q = queries.shape[0]
-    if tuple(scores.shape) != (q, N_SLAB) or tuple(segmax.shape) != (q, N_SLAB // SEG):
+    q, n = queries.shape[0], corpus.shape[0]
+    if tuple(scores.shape) != (q, n) or tuple(segmax.shape) != (q, n // SEG):
         raise AssertionError(f"unmasked kernel shapes {tuple(scores.shape)} {tuple(segmax.shape)}")
     if not torch.isfinite(scores).all():
         raise AssertionError("unmasked kernel: non-finite scores")
@@ -462,13 +486,13 @@ def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(q: int, corpus_itemsize: int):
+def bound(q: int, corpus_itemsize: int, n: int = N_SLAB, d: int = DIM):
     """(bound_ms, bound_by): each input read once, each output written once,
     against the card's memory rate; 2*Q*N*D f32 FMA ops against its f32
     rate outside the tensor cores."""
-    nbytes = N_SLAB * DIM * corpus_itemsize + q * DIM * 4 + N_SLAB + q * N_SLAB * 4 + q * (N_SLAB // SEG) * 4
+    nbytes = n * d * corpus_itemsize + q * d * 4 + n + q * n * 4 + q * (n // SEG) * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2 * q * N_SLAB * DIM / H100_F32_FLOPS * 1e3
+    t_ops = 2 * q * n * d / H100_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -479,17 +503,38 @@ def library_call(queries, corpus, mask):
     return scores, scores.view(queries.shape[0], -1, SEG).amax(dim=2)
 
 
-def unmasked_bound(q: int, corpus_itemsize: int):
+def unmasked_bound(q: int, corpus_itemsize: int, n: int = N_SLAB, d: int = DIM):
     """As bound() without the mask read."""
-    nbytes = N_SLAB * DIM * corpus_itemsize + q * DIM * 4 + q * N_SLAB * 4 + q * (N_SLAB // SEG) * 4
+    nbytes = n * d * corpus_itemsize + q * d * 4 + q * n * 4 + q * (n // SEG) * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2 * q * N_SLAB * DIM / H100_F32_FLOPS * 1e3
+    t_ops = 2 * q * n * d / H100_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_unmasked(queries, corpus):
     scores = torch.mm(queries, corpus.float().t())
     return scores, scores.view(queries.shape[0], -1, SEG).amax(dim=2)
+
+
+def score_segmax_times(qs, corpus, mask, card: str, reps: int = 7, calls: int = 10):
+    """The masked and the unmasked kernel, their plain versions and library
+    calls (for a bf16 slab the library line includes corpus.float()) at
+    one shape, each row logged beside its bound. -> (masked, unmasked)."""
+    (q, d), n = qs.shape, corpus.shape[0]
+    rows = []
+    for name, kernel, plain, library, bound_fn in (
+        ("score_segmax_masked", lambda: score_segmax(qs, corpus, mask),
+         lambda: score_segmax_plain(qs, corpus, mask), lambda: library_call(qs, corpus, mask), bound),
+        ("fused_score_segmax", lambda: fused_score_segmax(qs, corpus),
+         lambda: fused_score_segmax_plain(qs, corpus), lambda: library_unmasked(qs, corpus), unmasked_bound),
+    ):
+        b_ms, b_by = bound_fn(q, corpus.element_size(), n, d)
+        row = {"kernel_time": name, "dtype": str(corpus.dtype), "Q": q, "N": n, "D": d,
+               "ms": cuda_ms(kernel, reps, calls), "plain_ms": cuda_ms(plain, reps, calls),
+               "library_ms": cuda_ms(library, reps, calls), "bound_ms": b_ms, "bound_by": b_by, "card": card}
+        log(row)
+        rows.append(row)
+    return rows
 
 
 def attention_bound(b: int, h: int, l: int):
@@ -1033,6 +1078,21 @@ def main(argv=None) -> int:
                 max_err_unmasked = max(max_err_unmasked, err)
                 log({"kernel_check": "fused_score_segmax", "dtype": str(dtype), "Q": q,
                      "N": N_SLAB, "D": DIM, "max_abs_err": err, "tol": SCORE_TOL, "card": card})
+        # the stream's edges, each Q on its own data; one line per shape
+        for dtype in (torch.float32, torch.bfloat16):
+            for n, d in EDGE_SHAPES:
+                errs = {"score_segmax_masked": [], "fused_score_segmax": [], "all_freed": []}
+                for q in EDGE_Q:
+                    queries, corpus, mask = kernel_case(args.seed + q, q, dtype, dev, n, d, freed="segment")
+                    errs["score_segmax_masked"].append(check_kernel(queries, corpus, mask))
+                    errs["fused_score_segmax"].append(check_unmasked(queries, corpus))
+                    queries, corpus, mask = kernel_case(args.seed + q, q, dtype, dev, n, d, freed="all")
+                    errs["all_freed"].append(check_kernel(queries, corpus, mask))
+                    del queries, corpus, mask
+                max_err = max(max_err, *errs["score_segmax_masked"], *errs["all_freed"])
+                max_err_unmasked = max(max_err_unmasked, *errs["fused_score_segmax"])
+                log({"kernel_edges": str(dtype), "N": n, "D": d, "Q": list(EDGE_Q), "max_abs_err": errs,
+                     "tol": SCORE_TOL, "card": card})
         cases = ([(shape, False) for shape in ATTN_SHAPES + ATTN_EDGE]
                  + [(shape, True) for shape in ATTN_SCATTERED])
         for i, ((b, h, l, causal), scattered) in enumerate(cases):
@@ -1071,28 +1131,29 @@ def main(argv=None) -> int:
     with phase("times", card, seconds):
         main_path = None
         for dtype in (torch.float32, torch.bfloat16):
-            for q in sorted({1, 16, 128, result["main_q"]}):
+            for q in sorted({*TIME_Q, result["main_q"]}):
                 qs, corpus, mask = kernel_case(args.seed, q, dtype, dev)
-                ms = cuda_ms(lambda: score_segmax(qs, corpus, mask))
-                plain_ms = cuda_ms(lambda: score_segmax_plain(qs, corpus, mask))
-                library_ms = cuda_ms(lambda: library_call(qs, corpus, mask))
-                b_ms, b_by = bound(q, corpus.element_size())
-                row = {"kernel_time": "score_segmax_masked", "dtype": str(dtype), "Q": q, "N": N_SLAB,
-                       "D": DIM, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "card": card}
-                log(row)
+                masked, unmasked = score_segmax_times(qs, corpus, mask, card)
                 if dtype == torch.float32 and q == result["main_q"]:
-                    main_path = row
-                ms = cuda_ms(lambda: fused_score_segmax(qs, corpus))
-                plain_ms = cuda_ms(lambda: fused_score_segmax_plain(qs, corpus))
-                library_ms = cuda_ms(lambda: library_unmasked(qs, corpus))
-                b_ms, b_by = unmasked_bound(q, corpus.element_size())
-                row = {"kernel_time": "fused_score_segmax", "dtype": str(dtype), "Q": q, "N": N_SLAB,
-                       "D": DIM, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "card": card}
-                log(row)
+                    main_path = masked
                 if dtype == torch.float32 and q == 16:
-                    unmasked_main = row
+                    unmasked_main = unmasked
+            flat = corpus.view(-1)  # the rate of a plain read of the same slab
+            log({"slab_read": str(dtype), "N": N_SLAB, "D": DIM, "sum_ms": cuda_ms(lambda: flat.sum()),
+                 "bytes": flat.numel() * flat.element_size(), "card": card})
+            del qs, corpus, mask, flat
+        # bench.py's shard at the serving path's widest batch: checked, then timed
+        for dtype in (torch.float32, torch.bfloat16):
+            qs, corpus, mask = kernel_case(args.seed, 16, dtype, dev, N_BENCH)
+            errs = [check_kernel(qs, corpus, mask), check_unmasked(qs, corpus)]
+            log({"kernel_check": "bench_shard", "dtype": str(dtype), "Q": 16, "N": N_BENCH, "D": DIM,
+                 "max_abs_err": errs, "tol": SCORE_TOL, "card": card})
+            score_segmax_times(qs, corpus, mask, card, reps=5, calls=3)
+            flat = corpus.view(-1)
+            log({"slab_read": str(dtype), "N": N_BENCH, "D": DIM, "sum_ms": cuda_ms(lambda: flat.sum(), reps=5, calls=3),
+                 "bytes": flat.numel() * flat.element_size(), "card": card})
+            del qs, corpus, mask, flat
+            torch.cuda.empty_cache()
         attn_table = []
         for i, (b, h, l, causal) in enumerate(ATTN_SHAPES):
             q_, k_, v_, m_ = attention_case(args.seed + i, b, h, l, dev)

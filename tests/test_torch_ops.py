@@ -45,9 +45,18 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.mark.parametrize("corpus_dtype", ["float32", "bfloat16"])
-def test_score_segmax_plain_matches_pallas_masked(rng, corpus_dtype):
-    q, n, d = 8, 16384, 64
+# query counts of the serving path's query tiles (1, 3 -> 4, 8, 16) and the
+# step past them (17); Q 8 keeps the plain dtype id it always had
+QUERY_CASES = [
+    pytest.param(dtype, q, id=dtype if q == 8 else f"{dtype}-q{q}")
+    for dtype in ("float32", "bfloat16")
+    for q in (1, 3, 8, 16, 17)
+]
+
+
+@pytest.mark.parametrize("corpus_dtype, q", QUERY_CASES)
+def test_score_segmax_plain_matches_pallas_masked(rng, corpus_dtype, q):
+    n, d = 16384, 64
     queries = _unit(rng, q, d)
     corpus = _unit(rng, n, d)
     mask = rng.random(n) > 0.2
@@ -76,6 +85,25 @@ def test_score_segmax_plain_matches_pallas_masked(rng, corpus_dtype):
         np.testing.assert_allclose(t_scores[fin], j_scores[fin], rtol=0, atol=2.0**-8)
     # the segment max is the max of the port's own scores, exactly
     assert np.array_equal(t_segmax.numpy(), t_scores.reshape(q, n // SEG, SEG).max(axis=2))
+
+
+@pytest.mark.parametrize("corpus_dtype", ["float32", "bfloat16"])
+def test_score_segmax_plain_matches_pallas_all_freed(rng, corpus_dtype):
+    """A slab with every slot freed: -inf everywhere in both outputs, on
+    both sides."""
+    q, n, d = 3, 16384, 64
+    queries = _unit(rng, q, d)
+    corpus = _unit(rng, n, d)
+    mask = np.zeros(n, dtype=bool)
+    jc = jnp.asarray(corpus).astype(jnp.dtype(corpus_dtype))
+    j_scores, j_segmax_t = fused_score_segmax_masked(
+        jnp.asarray(queries), jc, jnp.asarray(mask), block_n=1024
+    )
+    tc = _t(corpus).to(getattr(torch, corpus_dtype))
+    t_scores, t_segmax = score_segmax(_t(queries), tc, _t(mask))
+    for out in (np.asarray(j_scores), np.asarray(j_segmax_t), t_scores.numpy(), t_segmax.numpy()):
+        assert np.isneginf(out).all()
+    assert t_scores.shape == (q, n) and t_segmax.shape == (q, n // SEG)
 
 
 def test_score_segmax_cpu_wrapper_is_plain_and_uncounted(rng):
@@ -108,11 +136,11 @@ def test_score_segmax_rejects_bad_inputs(rng, bad, err):
         score_segmax(*bad(q, c, m))
 
 
-@pytest.mark.parametrize("corpus_dtype", ["float32", "bfloat16"])
-def test_fused_score_segmax_plain_matches_pallas(rng, corpus_dtype):
+@pytest.mark.parametrize("corpus_dtype, q", QUERY_CASES)
+def test_fused_score_segmax_plain_matches_pallas(rng, corpus_dtype, q):
     """The unmasked pass against the JAX kernel, whose segment maxima come
     back transposed ([N/128, Q]); same tolerances as the masked form."""
-    q, n, d = 8, 16384, 64
+    n, d = 16384, 64
     queries = _unit(rng, q, d)
     corpus = _unit(rng, n, d)
     jc = jnp.asarray(corpus).astype(jnp.dtype(corpus_dtype))
