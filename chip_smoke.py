@@ -7,8 +7,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi); fails when torch.cuda.is_available() is false;
-2. build: nvcc builds every kernel of the port from csrc/ (one process per
-   source, started together); prints the seconds and the -Xptxas -v lines;
+2. build: nvcc builds every kernel of the port from csrc/*.cu and g++ its
+   two host libraries from csrc/*.cpp (the BM25 index and the WordPiece
+   tokenizer; one process per source, started together); prints the
+   seconds and the -Xptxas -v lines;
 3. kernel vs plain: the masked and the unmasked score + segment-max
    kernels against their plain versions on the card, N = 65,536, D = 768,
    Q in {1, 16, 128}, f32 and bf16 slabs, freed slots next to the top
@@ -22,15 +24,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    shapes (L 1, 17, 100, 257, 500, 512; B 1 and 3; causal and not) and,
    under causal, with masks that are not prefixes (key 0 masked and later
    keys valid, a row masked in its first half, a row with no valid key);
-4. the slice: RagEngine.create over the committed encoder, add_document for
-   PDFs written here, then seeded chunks through embed_in_batches and the
-   store + lexical index until more than 32,768 chunks are live (slab
-   capacity 65,536, the kernel's branch of hybrid_topk); SearchBatcher
-   answers bursts of 1, 16 and 64 queries at top_k 10 with the kernel's
-   launch count reset just before and read just after; every batch is
-   checked against the plain hybrid path on a CPU copy of the same slab,
-   mask, query embeddings and lexical hits; a second engine's
-   load_from_disk must give the same answers;
+4. the slice: RagEngine.create over the committed encoder (the native
+   WordPiece tokenizer and the native BM25 index, checked), add_document
+   for PDFs written here, then seeded chunks through embed_in_batches and
+   the store + lexical index until more than 32,768 chunks are live (slab
+   capacity 65,536, the kernel's branch of hybrid_topk); engine.warmup();
+   lexical_check (its queries, and those of every phase added with it,
+   from a stream of their own, so earlier phases keep theirs): a
+   pure-Python BM25 index over the same chunks and slots against the
+   native one on 256 seeded queries (some non-ASCII; same slot sets,
+   scores within rel 1e-5, unseen mass within 1e-6), then 8 threads
+   scoring at once against the sequential answers; tokenizer_check: the
+   native tokenizer against the pure-Python one over the chunk texts and
+   one judged batch's prompts (identical ids; the routed count printed);
+   SearchBatcher answers bursts of 1, 16 and 64 queries at top_k 10 with
+   the kernel's launch count reset just before and read just after; every
+   batch is checked against the plain hybrid path on a CPU copy of the
+   same slab, mask, query embeddings and lexical hits; a second engine's
+   load_from_disk (then its warmup) must give the same answers;
 5. the rerank-on lanes, with RAG_TPU_FUSED_ATTN=1 and the committed
    reranker: encoder_fused holds the encoder with the attention kernel
    against the encoder without it (1,024 ingest chunks and a query batch,
@@ -42,6 +53,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    batch with the kernel off on the card and the first batch of each lane
    on a CPU copy; every fallback counter must stay 0; the judge forward is
    timed with the kernel and without it at the lanes' 16-query batches;
+   then the MMR lane: the first 64 chunks are added once more (the same
+   texts and rows: pools with exact duplicates) and the MMR hot lane
+   (diversity 0.3, rerank off) answers bursts of 1, 16 and 64 queries at
+   top_k 10, a 16-query burst whose pools hold duplicate chunks, and a
+   16-query burst at top_k 100 (BASELINE.json config 2), the kernel's
+   launches counted; every MMR batch is checked against a CPU copy's
+   object lane (same ordered slots, scores within 1e-4; a divergence is
+   allowed only where the two picks' MMR values tie within 2e-4, printed
+   and counted);
 6. segmented_topk: the unmasked kernel's own path (bench.py's exact
    top-k), checked against torch.topk over the full scores;
 7. times (CUDA events around a back-to-back run of calls, after a
@@ -52,7 +72,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and for attention also the span of a single call (host enqueue
    included, the measure of earlier runs) in one table; search latency
    per burst, rerank burst latency per lane and a stage breakdown; ingest
-   rate; each printed as a JSON line naming the card.
+   rate; MMR burst latency and the MMR lane's stage spans; each printed as
+   a JSON line naming the card. A host_libs line gives the two host
+   libraries' build seconds and times against their pure-Python twins.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -70,6 +92,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import uuid
 import zlib
@@ -83,11 +106,24 @@ from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta
 from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine
 from rust_local_rag_tpu_torch.kernels import build
+from rust_local_rag_tpu_torch.models.encoder import default_asset
+from rust_local_rag_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
 from rust_local_rag_tpu_torch.models.reranker import TransformerReranker
-from rust_local_rag_tpu_torch.models.reranker_service import RerankerService
+from rust_local_rag_tpu_torch.models.reranker_service import RerankerCandidate, RerankerService
+from rust_local_rag_tpu_torch.models.tokenizer import WordPieceTokenizer
 from rust_local_rag_tpu_torch.ops.attention import attention_plain, fused_attention
+from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
 from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
-from rust_local_rag_tpu_torch.ops.hybrid import _blend_union, hybrid_topk_packed, unpack_topk, uses_score_segmax
+from rust_local_rag_tpu_torch.ops.hybrid import (
+    _blend_union,
+    hybrid_topk,
+    hybrid_topk_packed,
+    hybrid_topk_packed_mmr,
+    unpack_topk,
+    uses_score_segmax,
+)
+from rust_local_rag_tpu_torch.ops.mmr import mmr_select_batch
+from rust_local_rag_tpu_torch.ops.native_bm25 import NativeLexicalIndex
 from rust_local_rag_tpu_torch.ops.score_segmax import (
     SEG,
     fused_score_segmax,
@@ -122,6 +158,22 @@ ATTN_SOURCE = "rust_local_rag_tpu_torch/csrc/attention.cu"
 ATTN_REPLACES = "rust_local_rag_tpu/ops/attention.py:105"
 BURSTS = (1, 16, 64)
 TOP_K = 10
+# the MMR lane: BASELINE.json config 2's diversity, and its top_k 100 for
+# one burst; 64 chunks ingested twice give pools with exact duplicates
+DIVERSITY = 0.3
+MMR_WIDE_K = 100
+N_DUPLICATES = 64
+# an MMR value is (1 - lambda) * score - lambda * max similarity, each
+# within SCORE_TOL between the card and the CPU copy
+MMR_TIE_TOL = 2 * SCORE_TOL
+# native BM25 against the Python index: f32 sums of f64 terms against f64
+# sums (the JAX package's own bound); the unseen mass is an f32 ratio
+BM25_REL = 1e-5
+UNSEEN_TOL = 1e-6
+LEX_QUERIES = 256
+LEX_THREADS = 8
+LEXICAL_SOURCE = "rust_local_rag_tpu_torch/csrc/lexical.cpp"
+WORDPIECE_SOURCE = "rust_local_rag_tpu_torch/csrc/wordpiece.cpp"
 # bf16 outputs: the kernel and attention_plain sum the same exact bf16
 # products in f32 in other orders and round p and the output to bf16; one
 # bf16 ulp at |x| ~ 2 is 1.6e-2 (the bound tests/test_attention.py uses)
@@ -557,14 +609,16 @@ def attention_bias(mask, causal: bool):
     return bias
 
 
-def stage_breakdown(engine, rng, probs, q: int = 16, reps: int = 5) -> dict:
+def stage_breakdown(engine, py_index, rng, probs, q: int = 16, reps: int = 5) -> dict:
     """Median ms of each stage of one hot-lane batch of q queries, every
     stage ended by a synchronise (host clock), the span of the hybrid stage
     between CUDA events, and its three parts (kernel, selection, blend)
-    timed alone; then the ingest split between tokenising and the encoder
-    forward for 1024 length-sorted chunks in batches of 128."""
+    timed alone; BM25 (_prep_lexical) of the same queries also with the
+    pure-Python index py_index; then the ingest split between tokenising
+    and the encoder forward for 1024 length-sorted chunks in batches of
+    128."""
     stages = {"encode_queries": [], "bm25": [], "hybrid_span": [], "hybrid_wall": [],
-              "fetch_and_results": []}
+              "fetch_and_results": [], "bm25_python": []}
     r = ResolvedWeights.from_query_weights(None)
     w_e = torch.tensor(r.embedding, dtype=torch.float32, device=engine.device)
     w_l = torch.tensor(r.lexical, dtype=torch.float32, device=engine.device)
@@ -576,6 +630,13 @@ def stage_breakdown(engine, rng, probs, q: int = 16, reps: int = 5) -> dict:
         t1 = time.perf_counter()
         slots, vals = engine._prep_lexical(qs, TOP_K, q)
         t2 = time.perf_counter()
+        native, engine.lexical_index = engine.lexical_index, py_index
+        try:
+            t_py = time.perf_counter()
+            engine._prep_lexical(qs, TOP_K, q)
+            t_py = time.perf_counter() - t_py
+        finally:
+            engine.lexical_index = native
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         out = hybrid_topk_packed(
@@ -594,7 +655,7 @@ def stage_breakdown(engine, rng, probs, q: int = 16, reps: int = 5) -> dict:
         t4 = time.perf_counter()
         if sum(map(len, results)) != q * TOP_K:
             raise AssertionError("breakdown batch returned short result lists")
-        for k, x in zip(stages, (t1 - t0, t2 - t1, a.elapsed_time(b) / 1e3, t3 - t2, t4 - t3)):
+        for k, x in zip(stages, (t1 - t0, t2 - t1, a.elapsed_time(b) / 1e3, t3 - t2, t4 - t3, t_py)):
             stages[k].append(x)
     out = {f"batch{q}_{k}_ms": statistics.median(x) * 1e3 for k, x in stages.items()}
     # the hybrid stage's three parts on the last batch's inputs
@@ -618,6 +679,341 @@ def stage_breakdown(engine, rng, probs, q: int = 16, reps: int = 5) -> dict:
     out.update({"ingest1024_tokenize_s": t1 - t0, "ingest1024_encoder_s": t2 - t1,
                 "ingest1024_tokens": int(sum(m.sum() for _, m in batches)),
                 "ingest1024_padded_tokens": int(sum(m.size for _, m in batches))})
+    return out
+
+
+# ------------------------------------------------------------ host tier ----
+
+
+def lex_rows(index, query: str, limit: int = TOP_K * 5):
+    """(slots, scores) of index.score_slots_into at the hot lane's width."""
+    slots = np.full(limit, -1, dtype=np.int32)
+    vals = np.zeros(limit, dtype=np.float32)
+    n = index.score_slots_into(query, limit, slots, vals)
+    return slots[:n].tolist(), vals[:n].tolist()
+
+
+def same_hits(a, b, what: str) -> float:
+    """Native hits a against Python hits b, as (slots, scores): the same
+    slot sets up to rows tied with the last score within BM25_REL, scores
+    within rel BM25_REL. -> the largest relative difference."""
+    if len(a[0]) != len(b[0]):
+        raise AssertionError(f"{what}: {len(a[0])} hits vs {len(b[0])}")
+    ga, gb = dict(zip(*a)), dict(zip(*b))
+    if not ga:
+        return 0.0
+    floor = min(min(ga.values()), min(gb.values()))
+    for slot in set(ga) ^ set(gb):
+        v = ga.get(slot, gb.get(slot))
+        if v - floor > BM25_REL * max(abs(floor), 1.0):
+            raise AssertionError(f"{what}: slot {slot} ({v}) on one side only, above the tie band of {floor}")
+    worst = 0.0
+    for slot in set(ga) & set(gb):
+        rel = abs(ga[slot] - gb[slot]) / max(abs(gb[slot]), 1e-30)
+        if rel > BM25_REL and abs(ga[slot] - gb[slot]) > 1e-12:
+            raise AssertionError(f"{what}: slot {slot}: {ga[slot]} vs {gb[slot]}")
+        worst = max(worst, rel if gb[slot] else 0.0)
+    return worst
+
+
+def lexical_check(engine, rng, probs) -> tuple:
+    """The native index against a pure-Python index over the same chunks
+    and slots, then LEX_THREADS threads scoring at once against the
+    sequential answers. -> (the Python index, a stats dict)."""
+    native = engine.lexical_index
+    if not isinstance(native, NativeLexicalIndex):
+        raise AssertionError(f"the engine's BM25 index is {type(native).__name__}, not the native one")
+    t0 = time.perf_counter()
+    py = LexicalIndex()
+    for slot, m in engine.store.iter_meta():
+        py.add_chunk(m.id, m.text, slot)
+    t_build = time.perf_counter() - t0
+    queries = queries_for(rng, LEX_QUERIES, probs)
+    for i in range(0, LEX_QUERIES, 8):  # non-ASCII terms: the Python tokenizer's path
+        queries[i] += " café naïve Straße"
+    worst_rel, worst_mass = 0.0, 0.0
+    t_native = t_py = 0.0
+    want = []
+    for q in queries:
+        t0 = time.perf_counter()
+        a = lex_rows(native, q)
+        t1 = time.perf_counter()
+        b = lex_rows(py, q)
+        t2 = time.perf_counter()
+        t_native += t1 - t0
+        t_py += t2 - t1
+        worst_rel = max(worst_rel, same_hits(a, b, f"lexical_check {q!r}"))
+        dm = abs(native.unseen_mass(q) - py.unseen_mass(q))
+        if dm > UNSEEN_TOL:
+            raise AssertionError(f"lexical_check {q!r}: unseen mass differs by {dm}")
+        worst_mass = max(worst_mass, dm)
+        want.append(a)
+    got = [[None] * len(queries) for _ in range(LEX_THREADS)]
+    errors = []
+
+    def worker(t):
+        try:
+            order = np.random.default_rng(t).permutation(len(queries)).tolist()
+            for i in order:
+                got[t][i] = lex_rows(native, queries[i])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(LEX_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    t_threads = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"lexical_check threads: {errors or 'a thread did not finish'}")
+    for t in range(LEX_THREADS):
+        if got[t] != want:
+            bad = sum(x != y for x, y in zip(got[t], want))
+            raise AssertionError(f"lexical_check: thread {t} differs from the sequential answers on {bad} queries")
+    return py, {"lexical_check_queries": len(queries), "non_ascii_queries": len(range(0, LEX_QUERIES, 8)),
+                "max_rel_score_diff": worst_rel, "max_unseen_mass_diff": worst_mass, "tol_rel": BM25_REL,
+                "tol_unseen": UNSEEN_TOL, "python_index_build_s": t_build,
+                "native_ms_per_query": t_native / len(queries) * 1e3, "python_ms_per_query": t_py / len(queries) * 1e3,
+                "threads": LEX_THREADS, "threaded_s": t_threads, "threads_equal_sequential": True}
+
+
+def judged_prompts(engine, rng, probs, q: int = 16) -> list:
+    """The prompts a judged batch of q queries sends to the judge (its
+    top_k head), one query with non-ASCII text."""
+    qs = queries_for(rng, q, probs)
+    qs[-1] += " — naïve café"
+    prompts = []
+    for query, res in zip(qs, engine.search_batch(qs, TOP_K, use_reranker=False)):
+        for r in res:
+            prompts.append(engine.reranker.build_prompt(query, RerankerCandidate(
+                chunk_id=r.chunk_id, document=r.document, text=r.text, page_number=r.page_number,
+                section=r.section, initial_score=r.score)))
+    return prompts
+
+
+def tokenizer_check(engine, texts, prompts) -> dict:
+    """The native tokenizers of the encoder and the judge against the
+    pure-Python one: identical ids and masks over the chunk texts (in the
+    encoder's batches of 128) and the judged prompts (head/tail at the
+    judge's length)."""
+    enc_tok = engine.embedding_service._model.tokenizer
+    judge = engine.reranker._model
+    for tok in (enc_tok, judge.tokenizer):
+        if not isinstance(tok, NativeWordPieceTokenizer):
+            raise AssertionError(f"a model tokenizes with {type(tok).__name__}, not the native tokenizer")
+    py = WordPieceTokenizer(default_asset("tokenizer.json"), max_len=enc_tok.max_len)
+    routed0 = enc_tok.routed_texts + judge.tokenizer.routed_texts
+    t_nat = t_py = 0.0
+    for i in range(0, len(texts), 128):
+        batch = texts[i : i + 128]
+        t0 = time.perf_counter()
+        a = enc_tok.encode_batch(batch)
+        t1 = time.perf_counter()
+        b = py.encode_batch(batch)
+        t2 = time.perf_counter()
+        t_nat += t1 - t0
+        t_py += t2 - t1
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"tokenizer_check: chunk batch {i // 128} differs from the pure-Python ids")
+    t0 = time.perf_counter()
+    a = judge.tokenizer.encode_batch_headtail(prompts, judge.judge_seq_len)
+    t1 = time.perf_counter()
+    b = py.encode_batch_headtail(prompts, judge.judge_seq_len)
+    t2 = time.perf_counter()
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError("tokenizer_check: the judged prompts' ids differ from the pure-Python ids")
+    return {"tokenizer_check_texts": len(texts), "tokenizer_check_prompts": len(prompts),
+            "routed_texts": enc_tok.routed_texts + judge.tokenizer.routed_texts - routed0,
+            "chunks_native_s": t_nat, "chunks_python_s": t_py,
+            "prompts_native_ms": (t1 - t0) * 1e3, "prompts_python_ms": (t2 - t1) * 1e3}
+
+
+# ------------------------------------------------------------- MMR lane ----
+
+
+def cpu_engine(engine, tmp: str, name: str, reranker=None):
+    """A CPU engine over the card engine's slab, mask, metadata and lexical
+    index (the slab copied to the host)."""
+    store = copy.copy(engine.store)
+    store._emb = engine.store.corpus().cpu()
+    store._mask = engine.store.valid_mask().cpu()
+    store.device = torch.device("cpu")
+    cpu = RagEngine(os.path.join(tmp, name), engine.embedding_service, reranker, device="cpu")
+    cpu.store, cpu.lexical_index = store, engine.lexical_index
+    return cpu
+
+
+def mmr_value(slot: int, rel: float, chosen: list, corpus_cpu, lam: float) -> float:
+    """(1 - lambda) * rel - lambda * (max similarity to the chosen slots,
+    floored at 0), in f64 on the CPU copy's rows."""
+    if not chosen:
+        return (1.0 - lam) * rel
+    row = corpus_cpu[slot].double()
+    sims = corpus_cpu[chosen].double() @ row
+    sims = torch.where(torch.isfinite(sims), sims, 0.0)
+    return (1.0 - lam) * rel - lam * max(0.0, float(sims.max()))
+
+
+def compare_mmr(got: list, want: list, corpus_cpu, lam: float, near: list, what: str) -> None:
+    """Card MMR rows against the CPU copy's, as [(slot, combined, emb,
+    lex)]: the same slots in the same order with scores within SCORE_TOL,
+    until a step where the two picks' MMR values (their scores and their
+    similarities to the common prefix) tie within MMR_TIE_TOL, after which
+    the lists may diverge (recorded in `near`)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, want {len(want)}")
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a[0] != b[0]:
+            chosen = [r[0] for r in want[:j]]
+            va = mmr_value(a[0], a[1], chosen, corpus_cpu, lam)
+            vb = mmr_value(b[0], b[1], chosen, corpus_cpu, lam)
+            if abs(va - vb) > MMR_TIE_TOL:
+                raise AssertionError(f"{what}: rank {j}: card slot {a[0]} (MMR {va}) vs CPU slot {b[0]} (MMR {vb})")
+            duplicate = bool(torch.equal(corpus_cpu[a[0]], corpus_cpu[b[0]]))
+            near.append({"lane": "mmr", "check": what, "rank": j, "card_slot": a[0], "cpu_slot": b[0],
+                         "card_mmr": va, "cpu_mmr": vb, "duplicate_rows": duplicate})
+            if not duplicate:  # the greedy paths part here
+                return
+        # the same slot, or a duplicate row: the later steps see the same
+        # similarities, so the comparison goes on
+        if max(abs(x - y) for x, y in zip(a[1:], b[1:])) > SCORE_TOL:
+            raise AssertionError(f"{what}: rank {j} slot {a[0]} / {b[0]}: {a} vs {b}")
+
+
+def mmr_stages(engine, rng, probs, top_k: int, q: int = 16, reps: int = 5) -> dict:
+    """Median ms of the stages of one q-query MMR hot-lane batch: query
+    encoder and BM25 (host clock, synchronised), the pool select
+    (hybrid_topk at the pool; CUDA events), the greedy MMR alone
+    (mmr_select_batch over the gathered pool; CUDA events), the whole
+    hybrid_topk_packed_mmr call (CUDA events) and fetch + results."""
+    r = ResolvedWeights.from_query_weights(None)
+    w_e = torch.tensor(r.embedding, dtype=torch.float32, device=engine.device)
+    w_l = torch.tensor(r.lexical, dtype=torch.float32, device=engine.device)
+    pool = max(top_k * 3, top_k + 10)
+    kb = 16 if top_k <= 16 else 128
+    corpus, mask = engine.store.corpus(), engine.store.valid_mask()
+    stages = {k: [] for k in ("encode_queries", "bm25", "pool_select_span", "mmr_select_span", "mmr_call_span",
+                              "fetch_and_results")}
+
+    def span(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b) / 1e3
+
+    for rep in range(reps + 1):
+        qs = queries_for(rng, q, probs)
+        t0 = time.perf_counter()
+        q_emb = engine._prep_queries(qs, q)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        slots, vals = engine._prep_lexical(qs, pool, q)
+        t2 = time.perf_counter()
+        lex = [torch.as_tensor(x, device=engine.device) for x in (slots, vals)]
+        (pv, pe, pl, pi), t_pool = span(lambda: hybrid_topk(q_emb, corpus, mask, *lex, w_e, w_l, pool))
+        cand = corpus[pi.clamp(min=0).long()]
+        counts = ((pi >= 0) & torch.isfinite(pv)).sum(dim=1)
+        _, t_mmr = span(lambda: mmr_select_batch(cand, pv, kb, DIVERSITY, counts))
+        out, t_call = span(lambda: hybrid_topk_packed_mmr(q_emb, corpus, mask, *lex, w_e, w_l, DIVERSITY, 0.0, pool, kb))
+        t3 = time.perf_counter()
+        col = engine.fetch_columnar(PendingSearch(out=out, nq=q, k=top_k, floor=0.0, q_emb=q_emb, lex_slots=slots,
+                                                  lex_vals=vals, resolved=r, kb=kb))
+        results = [engine.results_from_columnar(col, qi) for qi in range(q)]
+        t4 = time.perf_counter()
+        if sum(map(len, results)) != q * top_k:
+            raise AssertionError("mmr breakdown batch returned short result lists")
+        if rep:  # the first batch is a warm-up
+            for k, x in zip(stages, (t1 - t0, t2 - t1, t_pool, t_mmr, t_call, t4 - t3)):
+                stages[k].append(x)
+    return {f"mmr_top{top_k}_batch{q}_{k}_ms": statistics.median(x) * 1e3 for k, x in stages.items()}
+
+
+def run_mmr(engine, batcher, card: str, seconds: dict, rng, probs, tmp: str, dup_texts: list) -> dict:
+    """The MMR hot lane through SearchBatcher (diversity 0.3, rerank off),
+    every batch checked against a CPU copy's object lane."""
+    recorded, routed = [], {"general": 0}
+    dispatch, general = engine.dispatch_search_mmr, engine.search_with_diversity_batch
+
+    def recording_dispatch(queries, top_k, *a, **kw):
+        pending = dispatch(queries, top_k, *a, **kw)
+        recorded.append((list(queries), top_k, pending))
+        return pending
+
+    def counting_general(*a, **kw):
+        routed["general"] += 1
+        return general(*a, **kw)
+
+    bursts = {f"burst{b}": (queries_for(rng, b, probs), TOP_K) for b in BURSTS}
+    # queries made of duplicated chunks' own words: both copies in the pool
+    bursts["duplicates16"] = ([" ".join(t.split()[2:10]) for t in dup_texts[:16]], TOP_K)
+    bursts[f"top{MMR_WIDE_K}_burst16"] = (queries_for(rng, 16, probs), MMR_WIDE_K)
+    out = {"launches": 0, "latency": {}}
+    with phase("mmr", card, seconds):
+        engine.dispatch_search_mmr, engine.search_with_diversity_batch = recording_dispatch, counting_general
+        score_segmax.launches = 0
+        answers = {}
+        try:
+            for name, (qs, top_k) in bursts.items():
+                futs = [batcher.submit(q, top_k, DIVERSITY, None, use_reranker=False) for q in qs]
+                for q, f in zip(qs, futs):
+                    answers[(top_k, q)] = f.result(timeout=600)
+        finally:
+            del engine.dispatch_search_mmr, engine.search_with_diversity_batch
+        out["launches"] = score_segmax.launches
+        log({"lane": "mmr", "launches": {"score_segmax_masked": out["launches"]}, "dispatches": len(recorded),
+             "batch_sizes": [len(qs) for qs, _, _ in recorded], "general_lane_batches": routed["general"]})
+        if out["launches"] <= 0 or routed["general"] or not recorded:
+            raise AssertionError(f"mmr: {out['launches']} kernel launches, {routed['general']} batches on the general lane")
+        for (top_k, q), res in answers.items():
+            if len(res) != top_k or not all(np.isfinite(r.score) for r in res):
+                raise AssertionError(f"mmr {q!r}: {len(res)} results, want {top_k} finite")
+        check_fallbacks(engine, batcher, "mmr")
+
+    with phase("mmr_check", card, seconds):
+        cpu = cpu_engine(engine, tmp, "mmr_cpu_copy")
+        q_embs = {tuple(qs): p.q_emb.cpu() for qs, _, p in recorded}
+        cpu._prep_queries = lambda queries, nq_pad: q_embs[tuple(queries)]
+        corpus_cpu = cpu.store.corpus()
+        near: list = []
+        dup_pools = 0
+        for i, (qs, top_k, _) in enumerate(recorded):
+            want = cpu.search_with_diversity_batch(qs, top_k, DIVERSITY, use_reranker=False)
+            for q, w in zip(qs, want):
+                compare_mmr(rows_of(answers[(top_k, q)], engine.store), rows_of(w, engine.store), corpus_cpu,
+                            DIVERSITY, near, f"mmr batch {i} {q!r}")
+        for q in bursts["duplicates16"][0]:  # pools holding both copies of a chunk
+            pool = engine.search_batch([q], max(TOP_K * 3, TOP_K + 10), use_reranker=False)[0]
+            texts = [r.text for r in pool]
+            dup_pools += len(texts) != len(set(texts))
+        log({"mmr_checked_batches": len(recorded), "mmr_checked_queries": sum(len(qs) for qs, _, _ in recorded),
+             "pools_with_duplicate_chunks": dup_pools})
+        log({"mmr_near_tie_cases": near[:20], "count": len(near),
+             "between_duplicate_rows": sum(x["duplicate_rows"] for x in near)})
+        if not dup_pools:
+            raise AssertionError("mmr_check: no pool of the duplicates burst held a duplicated chunk")
+
+    with phase("mmr_latency", card, seconds):
+        sizes = [(b, TOP_K) for b in BURSTS] + [(16, MMR_WIDE_K)]
+        for b, top_k in sizes:
+            lat = []
+            for rep in range(6):
+                qs = queries_for(rng, b, probs)
+                t0 = time.perf_counter()
+                futs = [batcher.submit(q, top_k, DIVERSITY, None, use_reranker=False) for q in qs]
+                for f in futs:
+                    f.result(timeout=600)
+                if rep:  # the first burst of a size is a warm-up
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            out["latency"][f"{b}@top{top_k}"] = lat
+        check_fallbacks(engine, batcher, "mmr_latency")
+
+    with phase("mmr_breakdown", card, seconds):
+        for top_k in (TOP_K, MMR_WIDE_K):
+            log({**mmr_stages(engine, rng, probs, top_k), "card": card})
     return out
 
 
@@ -797,16 +1193,9 @@ def compare_object(res_a, res_b, queries, exact: bool, near: list, worst: dict, 
 
 
 def cpu_copy(engine, tmp: str):
-    """The engine's slab, mask, metadata and lexical index on a CPU engine
-    with its own reranker loaded on the CPU (the same committed weights)."""
-    store = copy.copy(engine.store)
-    store._emb = engine.store.corpus().cpu()
-    store._mask = engine.store.valid_mask().cpu()
-    store.device = torch.device("cpu")
-    judge = TransformerReranker.from_assets(device="cpu")
-    cpu = RagEngine(os.path.join(tmp, "cpu_copy"), engine.embedding_service, RerankerService(judge), device="cpu")
-    cpu.store, cpu.lexical_index = store, engine.lexical_index
-    return cpu
+    """cpu_engine with its own reranker loaded on the CPU (the same
+    committed weights)."""
+    return cpu_engine(engine, tmp, "cpu_copy", RerankerService(TransformerReranker.from_assets(device="cpu")))
 
 
 def judged_pass(engine, queries):
@@ -1059,11 +1448,13 @@ def main(argv=None) -> int:
              "capability": list(torch.cuda.get_device_capability(0))})
 
     with phase("build", card, seconds):
-        for res in build.build_all().values():
-            log({"build": res.name, "seconds": res.seconds, "library": res.path.split("/")[-1]})
-            for line in res.ptxas.splitlines():
+        built = build.build_all()
+        for res in built.values():
+            log({"build": res.name, "seconds": res.seconds, "library": res.path.split("/")[-1],
+                 "compiler": "g++" if res.name in build.HOST_LIBRARIES else "nvcc"})
+            for line in res.log.splitlines():
                 if line.strip():
-                    log(f"ptxas| {line}")
+                    log(f"{'g++' if res.name in build.HOST_LIBRARIES else 'ptxas'}| {line}")
 
     max_err = max_err_unmasked = max_err_attn = 0.0
     with phase("kernel_vs_plain", card, seconds):
@@ -1184,14 +1575,42 @@ def main(argv=None) -> int:
                 log({"rerank_burst": burst, "lane": lane, "top_k": TOP_K, "median_ms": statistics.median(lat),
                      "min_ms": min(lat), "max_ms": max(lat), "reps": len(lat), "card": card})
         log({"rerank_launches": rr["launches"], "card": card})
+        for size, lat in result["mmr"]["latency"].items():
+            log({"mmr_burst": size, "diversity": DIVERSITY, "median_ms": statistics.median(lat), "min_ms": min(lat),
+                 "max_ms": max(lat), "reps": len(lat), "card": card})
     log({"phase_seconds": seconds, "card": card})
+    masked_by_path = {"hot": result["launches"], "mmr": result["mmr"]["launches"],
+                      **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()}}
+    log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
+    bd, lx, tk = result["breakdown"], result["lexical"], result["tokenizer"]
+    log({"host_libs": [{
+        "name": "lexical",
+        "source": LEXICAL_SOURCE,
+        "copy_of": "native/lexical.cpp",
+        "build_s": built["lexical"].seconds,
+        "batch16_prep_lexical_ms": bd["batch16_bm25_ms"],
+        "python_batch16_prep_lexical_ms": bd["batch16_bm25_python_ms"],
+        "ms_per_query": lx["native_ms_per_query"],
+        "python_ms_per_query": lx["python_ms_per_query"],
+        "max_rel_score_diff": lx["max_rel_score_diff"],
+        "threads_equal_sequential": lx["threads_equal_sequential"],
+    }, {
+        "name": "wordpiece",
+        "source": WORDPIECE_SOURCE,
+        "copy_of": "native/wordpiece.cpp",
+        "build_s": built["wordpiece"].seconds,
+        "chunks_s": tk["chunks_native_s"],
+        "python_chunks_s": tk["chunks_python_s"],
+        "texts": tk["tokenizer_check_texts"],
+        "routed_texts": tk["routed_texts"],
+    }], "card": card})
 
     log({"kernels": [{
         "name": "score_segmax_masked",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": result["launches"],
+        "launches": sum(masked_by_path.values()),
         "max_abs_err": max_err,
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
@@ -1248,6 +1667,8 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             if n <= 0:
                 raise AssertionError(f"add_document({name}) indexed no chunks")
             n_pdf += n
+        if not isinstance(engine.lexical_index, NativeLexicalIndex):
+            raise AssertionError(f"the engine's BM25 index is {type(engine.lexical_index).__name__}")
         texts = chunk_texts(rng, args.extra_chunks, probs)
         t0 = time.perf_counter()
         embs = engine.embedding_service.embed_in_batches(texts)
@@ -1264,6 +1685,9 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
         t0 = time.perf_counter()
         engine.save_to_disk()
         t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.warmup()
+        t_warmup = time.perf_counter() - t0
         live = len(engine.store)
         if not (live > N_SLAB // 2 and engine.store.capacity == N_SLAB and uses_score_segmax(N_SLAB)):
             raise AssertionError(f"{live} live chunks, capacity {engine.store.capacity}")
@@ -1271,9 +1695,20 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             raise AssertionError("embeddings are not finite [n, 768]")
         ingest = {"ingest_chunks": len(texts), "pdf_chunks": n_pdf, "live_chunks": live,
                   "reranker_load_s": t_reranker, "create_s": t_create, "embed_s": t_embed, "embed_chunks_per_s": len(texts) / t_embed,
-                  "store_and_bm25_s": t_add, "save_s": t_save,
+                  "store_and_bm25_s": t_add, "save_s": t_save, "warmup_s": t_warmup,
                   "ingest_chunks_per_s": len(texts) / (t_embed + t_add)}
         log(ingest)
+
+    # the phases added after the rerank lanes draw from their own stream,
+    # so every earlier phase keeps the queries it had
+    rng_host = np.random.default_rng([args.seed, 9])
+    with phase("lexical_check", card, seconds):
+        py_index, lex_stats = lexical_check(engine, rng_host, probs)
+        log({**lex_stats, "card": card})
+
+    with phase("tokenizer_check", card, seconds):
+        tok_stats = tokenizer_check(engine, texts, judged_prompts(engine, rng_host, probs))
+        log({**tok_stats, "card": card})
 
     batcher = SearchBatcher(engine, RwLock())
     recorded = []
@@ -1316,6 +1751,9 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             engine2 = RagEngine(tmp, engine.embedding_service, device=dev)
             if len(engine2.store) != len(engine.store):
                 raise AssertionError(f"reload: {len(engine2.store)} chunks, want {len(engine.store)}")
+            t0 = time.perf_counter()
+            engine2.warmup()
+            log({"reload_warmup_s": time.perf_counter() - t0})
             qs = bursts[16]
             for q, a, b in zip(qs, engine.search_batch(qs, TOP_K, use_reranker=False),
                                engine2.search_batch(qs, TOP_K, use_reranker=False)):
@@ -1340,17 +1778,34 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
                 latency[b] = lat
 
         with phase("breakdown", card, seconds):
-            breakdown = stage_breakdown(engine, rng, probs)
+            breakdown = stage_breakdown(engine, py_index, rng, probs)
             log({**breakdown, "card": card})
+        del py_index
 
         rerank = run_rerank(engine, batcher, dev, card, seconds, rng, probs, tmp)
+
+        with phase("add_duplicates", card, seconds):
+            # the first N_DUPLICATES chunks once more: the same texts and
+            # rows (add_chunks normalises the same encoder output again)
+            dup = [ChunkMeta(id=str(uuid.UUID(int=int(rng_host.integers(2**63)) << 64 | i)),
+                             document_name="duplicates", text=t, chunk_index=i)
+                   for i, t in enumerate(texts[:N_DUPLICATES])]
+            slots = engine.add_chunks(dup, embs[:N_DUPLICATES])
+            corpus = engine.store.corpus()
+            src = [engine.store.slot_for_id(m.id) for m in metas[:N_DUPLICATES]]
+            if not torch.equal(corpus[slots], corpus[src]):
+                raise AssertionError("add_duplicates: the duplicated rows differ from their sources")
+            engine.warmup()
+            log({"duplicates_added": len(slots), "live_chunks": len(engine.store)})
+        mmr = run_mmr(engine, batcher, card, seconds, rng_host, probs, tmp, texts[:N_DUPLICATES])
     finally:
         batcher.stop()
         engine.embedding_service.close()
     # the query batch the kernel saw most often on the main path
     padded = [p.out.shape[0] for _, p in recorded]
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
-            "main_q": max(set(padded), key=padded.count), "rerank": rerank}
+            "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
+            "lexical": lex_stats, "tokenizer": tok_stats}
 
 
 if __name__ == "__main__":

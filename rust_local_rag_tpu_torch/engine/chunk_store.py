@@ -85,6 +85,9 @@ class ChunkStore:
     def slot_for_id(self, chunk_id: str) -> int:
         return self._id_to_slot[chunk_id]
 
+    def contains(self, chunk_id: str) -> bool:
+        return chunk_id in self._id_to_slot
+
     def chunk_ids(self) -> List[str]:
         return list(self._id_to_slot.keys())
 

@@ -1,12 +1,13 @@
-"""RagEngine of the port: ingest, the rerank-off hot lane, and the two
-rerank-on lanes (port of rust_local_rag_tpu/engine/rag_engine.py).
+"""RagEngine of the port: ingest, the rerank-off hot lane, the MMR lanes
+and the two rerank-on lanes (port of rust_local_rag_tpu/engine/rag_engine.py).
 
 Ingest: hash skip, PDF text, sentence chunks, batched embeddings,
 replace-document, index sync, persist. First stage: query embeddings stay
 on the device, BM25 hits are shipped sparse, and
 ops/hybrid.hybrid_topk_packed does the dense scoring (the score +
 segment-max kernel on large slabs), exact top-k and the lexical blend in
-one call whose packed [Q, 4, k] int32 result comes back in one copy.
+one call whose packed [Q, 4, k] int32 result comes back in one copy. BM25
+is the native index (ops/native_bm25.py) unless RAG_TPU_NATIVE_BM25=0.
 
 Lanes:
   * hot lane (rerank off): dispatch_search -> fetch_columnar ->
@@ -17,11 +18,17 @@ Lanes:
     pass falls back to initial scores and adds one to rerank_fallbacks;
   * judge-gated lane (reranker weight 0, the shipped quality
     configuration): dispatch_search -> judge_columnar -> fetch_judged ->
-    results_from_judged, columnar end to end.
+    results_from_judged, columnar end to end;
+  * MMR hot lane (diversity > 0, rerank off): dispatch_search_mmr (pool
+    select, floor gate, greedy MMR in ops/hybrid.hybrid_topk_packed_mmr)
+    -> fetch_columnar -> results_from_columnar;
+  * MMR object lane (search_with_diversity_batch, diversity > 0): the pool
+    through search_batch, then greedy MMR on the device (_mmr_one with
+    RAG_TPU_DEVICE_MMR, _mmr_many for batches of 8 or more or with
+    RAG_TPU_BATCH_DEVICE_MMR) or on the host over the pool's similarities.
 Rejection: the dense-cosine floor, the judge floor, the query floor on the
 best judged yes-probability, and the joint unseen-term gate (2-way, or
-3-way with the judge-rescue term). There are no MMR, int8 or mesh lanes
-yet; search_with_diversity_batch takes diversity 0 only.
+3-way with the judge-rescue term). There are no int8 or mesh lanes yet.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import hashlib
 import logging
 import os
 import threading
+import time
 import uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -51,12 +59,20 @@ from rust_local_rag_tpu_torch.models.reranker_service import (
     RerankerService,
     build_default_reranker,
 )
-from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
 from rust_local_rag_tpu_torch.ops.hybrid import (
+    hybrid_topk,
     hybrid_topk_packed,
+    hybrid_topk_packed_mmr,
     lex_width_for,
     unpack_topk,
 )
+from rust_local_rag_tpu_torch.ops.mmr import (
+    mmr_select,
+    mmr_select_batch,
+    mmr_select_host,
+    similarity_matrix,
+)
+from rust_local_rag_tpu_torch.ops.native_bm25 import make_lexical_index
 
 logger = logging.getLogger(__name__)
 
@@ -204,9 +220,10 @@ class RagEngine:
         elif dtype_env == "f32":
             corpus_dtype = torch.float32
         self.store = ChunkStore(embedding_service.dim, corpus_dtype, device=self.device)
-        self.lexical_index = LexicalIndex()
+        self.lexical_index = make_lexical_index()
         self.document_hashes: Dict[str, str] = {}
         self._needs_reindex = False
+        self._device_mmr = bool(os.environ.get("RAG_TPU_DEVICE_MMR"))
         # engine-level rejection (see the JAX engine's __init__ notes): the
         # judge / dense-cosine floors, the query floor on the best judged
         # yes-probability, and the joint unseen-term gate with its
@@ -376,21 +393,29 @@ class RagEngine:
             self.lexical_index.score_slots_into(query, limit, lex_slots[qi], lex_vals[qi])
         return lex_slots, lex_vals
 
-    def _dispatch(self, queries: List[str], top_k: int, k: int, resolved: ResolvedWeights):
+    def _f32(self, x: float) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.float32, device=self.device)
+
+    def _dispatch(
+        self, queries: List[str], top_k: int, k: int, resolved: ResolvedWeights, with_sims: bool = False
+    ):
+        """First stage of a batch: the packed [Q, 4, kb] result, or with
+        with_sims the five unpacked outputs of hybrid_topk (the last the
+        [Q, kb, kb] candidate similarities)."""
         nq_pad = _bucket_batch(len(queries))
         q_emb = self._prep_queries(queries, nq_pad)
         lex_slots, lex_vals = self._prep_lexical(queries, top_k, nq_pad)
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=self.device)  # noqa: E731
-        out = hybrid_topk_packed(
+        args = (
             q_emb,
             self.store.corpus(),
             self.store.valid_mask(),
             torch.as_tensor(lex_slots, device=self.device),
             torch.as_tensor(lex_vals, device=self.device),
-            f32(resolved.embedding),
-            f32(resolved.lexical),
+            self._f32(resolved.embedding),
+            self._f32(resolved.lexical),
             _bucket_k(k),
         )
+        out = hybrid_topk(*args, with_sims=True) if with_sims else hybrid_topk_packed(*args)
         return out, q_emb, lex_slots, lex_vals
 
     def search_batch(
@@ -405,20 +430,27 @@ class RagEngine:
         rejection_unseen_mass: Optional[float] = None,
         rejection_unseen_cos: Optional[float] = None,
         rejection_unseen_judge: Optional[float] = None,
-    ) -> List[List[SearchResult]]:
+        collect_sims: bool = False,
+    ):
         """Two-stage retrieval for a batch (the object lane): one first-stage
         pass selects initial_k = 3 * top_k exactly; with a reranker and
         use_reranker, every query's candidates go through one batched judge
         forward and are blended with their initial scores. Without a
         reranker (or with use_reranker False) the top_k head is
-        materialised directly (rag_engine.py:716-1105 there)."""
+        materialised directly (rag_engine.py:716-1105 there).
+
+        collect_sims (the MMR object lane): -> (results, (sims [nq, kb, kb],
+        [{chunk_id: candidate row}] per query)), the similarities of the
+        first stage's candidates from the same call; (results, None) on an
+        empty store."""
         if len(self.store) == 0 or not queries:
-            return [[] for _ in queries]
+            empty = [[] for _ in queries]
+            return (empty, None) if collect_sims else empty
         resolved = ResolvedWeights.from_query_weights(weights)
         top_k = max(top_k, 1)
         nq = len(queries)
         initial_k = min(len(self.store), max(top_k * 3, top_k))
-        out, _, _, _ = self._dispatch(queries, top_k, initial_k, resolved)
+        out, _, _, _ = self._dispatch(queries, top_k, initial_k, resolved, with_sims=collect_sims)
         # Only rows that can be emitted are materialised: the whole pool
         # when the judge's score enters the blend, else the top_k head
         # (device rows are sorted by combined score, and at reranker weight
@@ -427,7 +459,11 @@ class RagEngine:
         reranking = self.reranker is not None and use_reranker
         head_only = not reranking or (resolved.reranker == 0.0 and resolved.initial > 0.0)
         need_rows = min(top_k, initial_k) if head_only else initial_k
-        vals_b, emb_b, lex_b, idx_b = unpack_topk(out.cpu().numpy(), nq, initial_k)
+        if collect_sims:
+            vals_b, emb_b, lex_b, idx_b, sims_b = (x[:nq].cpu().numpy() for x in out)
+            vals_b, emb_b, lex_b, idx_b = (x[:, :initial_k] for x in (vals_b, emb_b, lex_b, idx_b))
+        else:
+            vals_b, emb_b, lex_b, idx_b = unpack_topk(out.cpu().numpy(), nq, initial_k)
         vals_l = vals_b[:, :need_rows].tolist()
         emb_l = emb_b[:, :need_rows].tolist()
         lex_l = lex_b[:, :need_rows].tolist()
@@ -449,7 +485,7 @@ class RagEngine:
             )
             um_rejected = (unseen >= um_a) & (best_e <= um_b)
 
-        if not reranking:
+        if not reranking and not collect_sims:
             # rows arrive sorted by combined score, the fallback-fill order;
             # without a judge the rejection confidence is the dense cosine
             eff_floor = max(thr, cos_floor)
@@ -478,6 +514,7 @@ class RagEngine:
                     continue
                 candidates.append({
                     "slot": slot,
+                    "rank": rank,  # the row in the first stage's candidate order
                     "meta": self.store.meta_for_slot(slot),
                     "initial_score": vals_l[qi][rank],
                     "embedding_score": emb_l[qi][rank],
@@ -497,7 +534,7 @@ class RagEngine:
             ))
             for qi, candidates in enumerate(per_query_candidates)
             for c in candidates
-        ]
+        ] if reranking else []
         per_query_reranked: List[List[RerankedResult]] = [[] for _ in range(nq)]
         if flat_inputs:
             try:
@@ -530,7 +567,7 @@ class RagEngine:
             if rejection_query_floor is not None
             else self._rejection_query_floor
         )
-        if q_floor > 0.0:
+        if q_floor > 0.0 and reranking:
             # query-level rejection: the best judged yes-probability over
             # the whole judged pool decides whether the query is answerable
             for qi in range(nq):
@@ -549,7 +586,10 @@ class RagEngine:
                 return (r.embedding_score or 0.0) >= max(thr, cos_floor)
 
             outputs = [[r for r in out if _keep(r)] for out in outputs]
-        return outputs
+        if not collect_sims:
+            return outputs
+        rank_maps = [{c["meta"].id: c["rank"] for c in per_query_candidates[qi]} for qi in range(nq)]
+        return outputs, (sims_b, rank_maps)
 
     def _rerank_flat(self, queries: List[str], flat_inputs, nq: int) -> List[List[RerankedResult]]:
         """Score every (query, candidate) pair in one forward; regroup and
@@ -610,6 +650,12 @@ class RagEngine:
             c["slot"], score, c["embedding_score"], c["lexical_score"], initial=c["initial_score"]
         )
 
+    def search_with_diversity(
+        self, query: str, top_k: int, diversity_factor: float, weights: Optional[QueryWeights] = None, **kw
+    ) -> List[SearchResult]:
+        """MMR-diversified search of one query (rag_engine.rs:717-759)."""
+        return self.search_with_diversity_batch([query], top_k, diversity_factor, weights, **kw)[0]
+
     def search_with_diversity_batch(
         self,
         queries: List[str],
@@ -618,11 +664,99 @@ class RagEngine:
         weights: Optional[QueryWeights] = None,
         **kw,
     ) -> List[List[SearchResult]]:
-        """Diversity 0 is search_batch (same keyword options); MMR
-        (diversity > 0) is not ported yet."""
-        if min(max(diversity_factor, 0.0), 1.0) != 0.0:
-            raise NotImplementedError("MMR lane (diversity > 0) is not ported yet")
-        return self.search_batch(queries, top_k, weights, **kw)
+        """The object lane with MMR: diversity 0 is search_batch (same
+        keyword options); otherwise a pool of max(3 top_k, top_k + 10)
+        candidates through search_batch, then greedy MMR, on the device for
+        RAG_TPU_DEVICE_MMR (_mmr_one) or for batches of 8 or more
+        (RAG_TPU_BATCH_DEVICE_MMR forces either way; _mmr_many), else on
+        the host over the pool's similarities from the same first-stage
+        call."""
+        diversity_factor = min(max(diversity_factor, 0.0), 1.0)
+        if diversity_factor == 0.0:
+            return self.search_batch(queries, top_k, weights, **kw)
+        pool = max(top_k * 3, top_k + 10)
+        if self._device_mmr:
+            pooled = self.search_batch(queries, pool, weights, **kw)
+            return [self._mmr_one(results, top_k, diversity_factor) for results in pooled]
+        env = os.environ.get("RAG_TPU_BATCH_DEVICE_MMR")
+        if env is not None:
+            batch_device = env not in ("", "0", "false")
+        else:
+            batch_device = len(queries) >= 8
+        if batch_device:
+            return self._mmr_many(self.search_batch(queries, pool, weights, **kw), top_k, diversity_factor)
+        pooled, sims_info = self.search_batch(queries, pool, weights, collect_sims=True, **kw)
+        if sims_info is None:
+            return pooled
+        sims_b, rank_maps = sims_info
+        out: List[List[SearchResult]] = []
+        for qi, results in enumerate(pooled):
+            results = [r for r in results if r.chunk_id in rank_maps[qi]]
+            if not results:
+                out.append([])
+                continue
+            ranks = np.asarray([rank_maps[qi][r.chunk_id] for r in results], dtype=np.int64)
+            rel = np.asarray([r.score for r in results], dtype=np.float32)
+            selected = mmr_select_host(sims_b[qi][np.ix_(ranks, ranks)], rel, top_k, diversity_factor)
+            out.append([results[i] for i in selected])
+        return out
+
+    def _gather_rows(self, slots: np.ndarray) -> torch.Tensor:
+        """The slab rows of `slots` on the device (f32 or bf16 slab)."""
+        return self.store.corpus()[torch.as_tensor(slots, device=self.device).long()]
+
+    def _mmr_many(
+        self, pooled: List[List[SearchResult]], top_k: int, diversity_factor: float
+    ) -> List[List[SearchResult]]:
+        """Greedy MMR of a batch of pools on the device: one gather and one
+        batched selection (ops/mmr.mmr_select_batch); only [Q, k] indices
+        come back. Both padded axes are bucketed, as in the JAX engine."""
+        per = [[r for r in results if self.store.contains(r.chunk_id)] for results in pooled]
+        nq = len(per)
+        if nq == 0 or all(not r for r in per):
+            return [[] for _ in per]
+        nq_pad = _bucket_batch(nq)
+        p_pad = _bucket_k(max(len(r) for r in per))
+        slots = np.zeros((nq_pad, p_pad), dtype=np.int32)
+        rel = np.full((nq_pad, p_pad), -np.inf, dtype=np.float32)
+        counts = np.zeros(nq_pad, dtype=np.int32)
+        for qi, results in enumerate(per):
+            n = len(results)
+            counts[qi] = n
+            if n:
+                slots[qi, :n] = [self.store.slot_for_id(r.chunk_id) for r in results]
+                rel[qi, :n] = [r.score for r in results]
+        sel = mmr_select_batch(
+            self._gather_rows(slots),
+            torch.as_tensor(rel, device=self.device),
+            _bucket_k(top_k),
+            diversity_factor,
+            torch.as_tensor(counts, device=self.device),
+        ).cpu().numpy()[:, :top_k]
+        return [[per[qi][int(i)] for i in sel[qi] if i >= 0] for qi in range(nq)]
+
+    def _mmr_one(self, results: List[SearchResult], top_k: int, diversity_factor: float) -> List[SearchResult]:
+        """Greedy MMR of one pool: on the device with RAG_TPU_DEVICE_MMR
+        (ops/mmr.mmr_select), else the pool's [P, P] similarities on the
+        device and the greedy scan on the host."""
+        results = [r for r in results if self.store.contains(r.chunk_id)]
+        if not results:
+            return []
+        n = len(results)
+        rel = np.asarray([r.score for r in results], dtype=np.float32)
+        p_pad = _bucket_k(n)
+        slots = np.zeros(p_pad, dtype=np.int32)
+        slots[:n] = [self.store.slot_for_id(r.chunk_id) for r in results]
+        emb = self._gather_rows(slots)
+        if self._device_mmr:
+            rel_pad = np.full(p_pad, -np.inf, dtype=np.float32)
+            rel_pad[:n] = rel
+            sel = mmr_select(
+                emb, torch.as_tensor(rel_pad, device=self.device), _bucket_k(top_k), diversity_factor, valid_count=n
+            ).cpu().numpy()[:top_k]
+            return [results[int(i)] for i in sel if i >= 0]
+        sims = similarity_matrix(emb).cpu().numpy()[:n, :n]
+        return [results[i] for i in mmr_select_host(sims, rel, top_k, diversity_factor)]
 
     def _result(
         self, slot: int, score: float, emb: float, lex: float, initial: Optional[float] = None
@@ -675,6 +809,70 @@ class RagEngine:
         unseen, um_a, um_b = self._unseen_gate(queries, rejection_unseen_mass, rejection_unseen_cos)
         return PendingSearch(
             out=out, nq=len(queries), k=k, floor=max(thr, cosf, 0.0),
+            q_emb=q_emb, lex_slots=lex_slots, lex_vals=lex_vals,
+            resolved=resolved, kb=_bucket_k(k),
+            unseen=unseen, unseen_mass=um_a, unseen_cos=um_b,
+        )
+
+    def supports_columnar_mmr(self) -> bool:
+        """The MMR hot lane serves every store the port has (f32 and bf16
+        slabs; the JAX package sends its int8 store to the object lane)."""
+        return True
+
+    def dispatch_search_mmr(
+        self,
+        queries: List[str],
+        top_k: int,
+        diversity_factor: float,
+        weights: Optional[QueryWeights] = None,
+        rejection_threshold: Optional[float] = None,
+        rejection_cosine_floor: Optional[float] = None,
+        rejection_unseen_mass: Optional[float] = None,
+        rejection_unseen_cos: Optional[float] = None,
+    ) -> Optional[PendingSearch]:
+        """First half of the MMR hot lane: host prep, then pool selection,
+        floor gate, candidate gather and greedy MMR in one call
+        (ops/hybrid.hybrid_topk_packed_mmr), queued without waiting;
+        fetch_columnar returns the planes already in MMR order. The pool is
+        max(3 top_k, top_k + 10) candidates and the lexical request is sized
+        by it, as the object lane's search_batch call sizes them. (The JAX
+        engine selects MMR from the pool's bucket, 32 or 512 candidates for
+        30 or 300, which the object lane and the reference do not consider;
+        the port takes the pool itself.) None for an empty store or no
+        queries (reference rag_engine.rs:717-759)."""
+        if not self.supports_columnar_mmr() or len(self.store) == 0 or not queries:
+            return None
+        resolved = ResolvedWeights.from_query_weights(weights)
+        top_k = max(top_k, 1)
+        diversity_factor = min(max(diversity_factor, 0.0), 1.0)
+        nq_pad = _bucket_batch(len(queries))
+        pool = min(len(self.store), max(top_k * 3, top_k + 10))
+        q_emb = self._prep_queries(queries, nq_pad)
+        lex_slots, lex_vals = self._prep_lexical(queries, pool, nq_pad)
+        k = min(len(self.store), top_k)
+        thr = rejection_threshold if rejection_threshold is not None else self._rejection_threshold
+        cosf = (
+            rejection_cosine_floor
+            if rejection_cosine_floor is not None
+            else self._rejection_cosine_floor
+        )
+        floor = max(thr, cosf, 0.0)
+        out = hybrid_topk_packed_mmr(
+            q_emb,
+            self.store.corpus(),
+            self.store.valid_mask(),
+            torch.as_tensor(lex_slots, device=self.device),
+            torch.as_tensor(lex_vals, device=self.device),
+            self._f32(resolved.embedding),
+            self._f32(resolved.lexical),
+            diversity_factor,
+            floor,
+            pool,
+            _bucket_k(k),
+        )
+        unseen, um_a, um_b = self._unseen_gate(queries, rejection_unseen_mass, rejection_unseen_cos)
+        return PendingSearch(
+            out=out, nq=len(queries), k=k, floor=floor,
             q_emb=q_emb, lex_slots=lex_slots, lex_vals=lex_vals,
             resolved=resolved, kb=_bucket_k(k),
             unseen=unseen, unseen_mass=um_a, unseen_cos=um_b,
@@ -867,6 +1065,24 @@ class RagEngine:
             res.no_logprob = float(jc.no[qi, rank])
             out.append(res)
         return out
+
+    def warmup(self) -> None:
+        """Compile every BM25 posting snapshot (native index), then run one
+        search on each lane, MMR included, so no later query pays a
+        first-touch cost (JAX rag_engine.py:2018-2045). Unlike the JAX
+        engine's, a failure here raises."""
+        if len(self.store) == 0:
+            return
+        t0 = time.monotonic()
+        compiled = self.lexical_index.compile_all()
+        self.search_with_diversity("warmup query", 5, 0.3)
+        self.search("warmup query", 5)
+        self.search_with_diversity_batch([f"warmup query {i}" for i in range(8)], 5, 0.3)
+        for pending in (self.dispatch_search(["warmup query"], 5),
+                        self.dispatch_search_mmr(["warmup query"], 5, 0.3)):
+            self.fetch_columnar(pending)
+        logger.info("compiled %d BM25 posting snapshots; search lanes warmed up in %.2f s",
+                    compiled, time.monotonic() - t0)
 
     # ----- stats / listing ---------------------------------------------------
 

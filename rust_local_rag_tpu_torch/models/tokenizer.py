@@ -329,8 +329,14 @@ class WordPieceTokenizer:
 def load_tokenizer(
     path: Optional[str] = None, vocab_size: int = 30528, max_len: int = 512
 ):
-    """WordPieceTokenizer for an existing tokenizer.json, else the
-    deterministic hash tokenizer."""
+    """For an existing tokenizer.json the native WordPiece tokenizer
+    (models/native_tokenizer.py; raises when its library cannot be built),
+    or the pure-Python WordPieceTokenizer when RAG_TPU_NATIVE_TOKENIZER=0;
+    else the deterministic hash tokenizer."""
     if path and os.path.exists(path):
-        return WordPieceTokenizer(path, max_len=max_len)
+        if os.environ.get("RAG_TPU_NATIVE_TOKENIZER", "1") == "0":
+            return WordPieceTokenizer(path, max_len=max_len)
+        from rust_local_rag_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
+
+        return NativeWordPieceTokenizer(path, max_len=max_len)
     return HashTokenizer(vocab_size=vocab_size, max_len=max_len)

@@ -1,5 +1,6 @@
-"""Hybrid first stage: dense scores + BM25 blend + exact top-k (port of
-rust_local_rag_tpu/ops/hybrid.py, the plain-lane functions).
+"""Hybrid first stage: dense scores + BM25 blend + exact top-k, and the
+MMR hot lane's one-call pool select + greedy MMR (port of
+rust_local_rag_tpu/ops/hybrid.py, the f32 / bf16 slab functions).
 
 The BM25 side arrives SPARSE: the host ships the top-L (slot, score)
 pairs, never an N-sized array. The blend needs no scatter, by the union
@@ -27,6 +28,7 @@ from rust_local_rag_tpu_torch.ops.fast_topk import (
     segmented_exact_topk_scores,
     segmented_select_from,
 )
+from rust_local_rag_tpu_torch.ops.mmr import mmr_select_batch
 from rust_local_rag_tpu_torch.ops.score_segmax import score_segmax
 
 NEG_INF = float("-inf")
@@ -61,10 +63,13 @@ def hybrid_topk(
     w_embedding: torch.Tensor,  # 0-d f32
     w_lexical: torch.Tensor,    # 0-d f32
     k: int,
+    with_sims: bool = False,
 ):
     """-> (combined [Q,k], embedding [Q,k], lexical_norm [Q,k], idx [Q,k]
-    int32). Invalid slots score -inf; fewer than k valid slots leave
-    -inf / -1 sentinels in the tail."""
+    int32 [, cand_sims [Q,k,k] f32]). Invalid slots score -inf; fewer than
+    k valid slots leave -inf / -1 sentinels in the tail. with_sims adds
+    the pairwise similarities of the k selected candidates (for MMR; a
+    -1 slot contributes row 0's vector, as in the JAX package)."""
     n = corpus.shape[0]
     k_eff = min(k, n)
     if uses_score_segmax(n):
@@ -77,9 +82,15 @@ def hybrid_topk(
             e_vals, e_idx = segmented_exact_topk_scores(masked_emb, k_eff)
         else:
             e_vals, e_idx = torch.topk(masked_emb, k_eff, dim=1)
-    return _blend_union(
+    out = _blend_union(
         masked_emb, e_vals, e_idx, lex_slots, lex_vals, w_embedding, w_lexical, k, k_eff
     )
+    if not with_sims:
+        return out
+    # candidate pairwise similarities for MMR: f32 sums of f32 rows (a bf16
+    # slab's rows go to f32 first), as Precision.HIGHEST
+    cand = corpus[out[3].clamp(min=0).long()].float()  # [Q, k, D]
+    return (*out, torch.bmm(cand, cand.transpose(1, 2)))
 
 
 def _blend_union(masked_emb, e_vals, e_idx, lex_slots, lex_vals, w_embedding, w_lexical, k, k_eff):
@@ -126,17 +137,65 @@ def _blend_union(masked_emb, e_vals, e_idx, lex_slots, lex_vals, w_embedding, w_
     return vals, emb_k, lex_k, idx.to(torch.int32)
 
 
+def _pack(vals, emb_k, lex_k, idx) -> torch.Tensor:
+    """[Q, 4, k] int32: the three float planes as their bits, then idx."""
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    return torch.stack([bits(vals), bits(emb_k), bits(lex_k), idx.to(torch.int32)], dim=1)
+
+
 def hybrid_topk_packed(
     queries, corpus, valid_mask, lex_slots, lex_vals, w_embedding, w_lexical, k: int
 ) -> torch.Tensor:
     """hybrid_topk with the four outputs packed into one [Q, 4, k] int32
     tensor, float planes carried as their bits: 0=combined, 1=embedding,
     2=lexical_norm, 3=idx. One device->host copy fetches everything."""
-    vals, emb_k, lex_k, idx = hybrid_topk(
+    return _pack(*hybrid_topk(
         queries, corpus, valid_mask, lex_slots, lex_vals, w_embedding, w_lexical, k
+    ))
+
+
+def hybrid_topk_packed_mmr(
+    queries, corpus, valid_mask, lex_slots, lex_vals, w_embedding, w_lexical,
+    diversity: float, emb_floor: float, pool_k: int, out_k: int,
+) -> torch.Tensor:
+    """Diversity (MMR) search in one call with one packed result: the
+    hybrid pool select (pool_k candidates; the score + segment-max kernel
+    on large slabs), the confidence-floor gate, stable compaction, the
+    gather of the candidates' rows, batched greedy MMR (ops/mmr) and the
+    hot lane's packed [Q, 4, out_k] int32 layout, in MMR order.
+
+    Semantics of the object lane (reference rag_engine.rs:717-759): the
+    floor gates the POOL before MMR, the first pick is the top-ranked
+    survivor, and the scores returned are the blend scores. Survivors are
+    compacted to the front, keeping their order, because mmr_select_batch
+    takes a valid prefix. emb_floor <= 0 disables the gate (a cosine can
+    be negative, so 0.0 must not drop candidates)."""
+    vals, emb_k, lex_k, idx = hybrid_topk(
+        queries, corpus, valid_mask, lex_slots, lex_vals, w_embedding, w_lexical, pool_k
     )
-    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
-    return torch.stack([bits(vals), bits(emb_k), bits(lex_k), idx], dim=1)
+    p = vals.shape[1]
+    keep = (idx >= 0) & torch.isfinite(vals)
+    if emb_floor > 0.0:
+        keep = keep & (emb_k >= emb_floor)
+    rank = torch.arange(p, device=vals.device)[None, :]
+    order = torch.argsort(torch.where(keep, rank, rank + p), dim=1, stable=True)
+    vals_c, emb_c, lex_c, idx_c = (torch.gather(a, 1, order) for a in (vals, emb_k, lex_k, idx))
+    counts = keep.sum(dim=1)
+    tail = rank >= counts[:, None]
+    vals_c = torch.where(tail, NEG_INF, vals_c)
+    idx_c = torch.where(tail, -1, idx_c)
+
+    cand = corpus[idx_c.clamp(min=0).long()]  # [Q, P, D]
+    sel = mmr_select_batch(cand, vals_c, out_k, diversity, counts).long()  # [Q, out_k]
+    ok = sel >= 0
+    safe = sel.clamp(min=0)
+    take = lambda a: torch.gather(a, 1, safe)  # noqa: E731
+    return _pack(
+        torch.where(ok, take(vals_c), NEG_INF),
+        torch.where(ok, take(emb_c), NEG_INF),
+        torch.where(ok, take(lex_c), 0.0),
+        torch.where(ok, take(idx_c), -1),
+    )
 
 
 def unpack_topk(arr, nq: int, k: int):

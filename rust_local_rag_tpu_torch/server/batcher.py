@@ -6,13 +6,18 @@ batch's host work overlaps the previous batch's device work.
 Lanes, chosen per batch as in the JAX batcher:
   * hot lane (rerank off, diversity 0): engine.dispatch_search ->
     fetch_columnar -> results_from_columnar;
+  * MMR hot lane (rerank off, diversity > 0): engine.dispatch_search_mmr
+    (pool select, floor gate and greedy MMR in one call) -> fetch_columnar
+    -> results_from_columnar; an empty store goes to the general lane;
   * judge-gated lane (rerank on at reranker weight 0, diversity 0):
     dispatch_search -> judge_columnar -> fetch_judged ->
     results_from_judged; any failure there falls back to the general lane
     and adds one to ``judged_fallbacks``;
-  * general lane (everything else): engine.search_with_diversity_batch,
-    the object lane. MMR (diversity > 0) is not ported yet and resolves
-    to NotImplementedError.
+  * general lane (everything else, MMR with the reranker included):
+    engine.search_with_diversity_batch, the object lane.
+A lane that declines falls to the general lane after releasing the read
+lock: the lock prefers writers, so a nested read could wait forever
+behind a queued writer.
 Results resolve to SearchResult objects (the native response serializer
 belongs to the HTTP layer, not ported yet).
 """
@@ -225,6 +230,10 @@ class SearchBatcher:
     def _hot_lane(batch: List[_Item]) -> bool:
         return batch[0].diversity == 0.0 and not batch[0].use_reranker
 
+    def _mmr_hot_lane(self, batch: List[_Item]) -> bool:
+        """Diversity search with the reranker off."""
+        return batch[0].diversity > 0.0 and not batch[0].use_reranker and self.engine.supports_columnar_mmr()
+
     def _judge_lane(self, batch: List[_Item]) -> bool:
         """Reranking on at blend weight 0 (the shipped quality
         configuration: the judge as a rejection gate over the initial
@@ -240,6 +249,8 @@ class SearchBatcher:
         top_k = batch[0].key[0]
         if self._hot_lane(batch):
             self._execute_hot(batch, top_k)
+        elif self._mmr_hot_lane(batch):
+            self._execute_mmr_hot(batch, top_k)
         elif self._judge_lane(batch):
             self._execute_judged(batch, top_k)
         else:
@@ -262,6 +273,31 @@ class SearchBatcher:
             else:
                 col = self.engine.fetch_columnar(pending)
                 results = [self.engine.results_from_columnar(col, qi) for qi in range(len(batch))]
+        for it, res in zip(batch, results):
+            it.future.set_result(res)
+
+    def _execute_mmr_hot(self, batch: List[_Item], top_k: int) -> None:
+        """One MMR dispatch and one packed fetch; the planes come back in
+        MMR order, so the rest is the hot lane's."""
+        it0 = batch[0]
+        results = None
+        with self.engine_lock.read():
+            pending = self.engine.dispatch_search_mmr(
+                [it.query for it in batch],
+                top_k,
+                it0.diversity,
+                it0.weights,
+                rejection_threshold=it0.rejection_threshold,
+                rejection_cosine_floor=it0.rejection_cosine_floor,
+                rejection_unseen_mass=it0.rejection_unseen_mass,
+                rejection_unseen_cos=it0.rejection_unseen_cos,
+            )
+            if pending is not None:
+                col = self.engine.fetch_columnar(pending)
+                results = [self.engine.results_from_columnar(col, qi) for qi in range(len(batch))]
+        if results is None:  # the lane declined: after the read lock is released
+            self._execute_general(batch, top_k)
+            return
         for it, res in zip(batch, results):
             it.future.set_result(res)
 

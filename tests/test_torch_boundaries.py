@@ -90,12 +90,41 @@ def test_entry_points_default_to_cuda_and_refuse(no_card, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def test_kernel_build_is_content_addressed():
+def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
     a = build.library_path("score_segmax")
     assert a == build.library_path("score_segmax")
     assert os.path.dirname(a) == build.BUILD_DIR and "sm_90a" in " ".join(build.NVCC_FLAGS)
-    assert set(build.SIGNATURES) == {"score_segmax", "attention"}
+    assert set(build.SIGNATURES) == {"score_segmax", "attention", "lexical", "wordpiece"}
     assert build.library_path("attention") != a
+    # the host sources and the g++ flags are part of every library's hash
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("score_segmax.cu", "lexical.cpp"):
+        (csrc / name).write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    before = build.library_path("score_segmax"), build.library_path("lexical")
+    (csrc / "lexical.cpp").write_text("// v2\n")
+    after = build.library_path("score_segmax"), build.library_path("lexical")
+    monkeypatch.setattr(build, "GXX_FLAGS", build.GXX_FLAGS + ("-g",))
+    assert len({before, after, (build.library_path("score_segmax"), build.library_path("lexical"))}) == 3
+    assert all(x != y for x, y in zip(before, after))
+
+
+def test_host_libraries_build_with_gxx_and_never_ask_for_nvcc(monkeypatch):
+    """The host tier builds and loads on a machine without nvcc (as the CPU
+    tests run), from the port's own csrc/*.cpp, never native/."""
+    def no_nvcc():
+        raise AssertionError("a host library asked for nvcc")
+
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    res = build.build_all(build.HOST_LIBRARIES)
+    for name in build.HOST_LIBRARIES:
+        assert res[name].path == build.library_path(name) and os.path.exists(res[name].path)
+        assert build._source(name) == os.path.join(build.CSRC_DIR, f"{name}.cpp")
+        lib = build.load(name)
+        assert os.path.dirname(lib._name) == build.BUILD_DIR
+        for fn in build.SIGNATURES[name]:
+            assert getattr(lib, fn).argtypes is not None
 
 
 def test_weights_resolve_like_jax(monkeypatch):

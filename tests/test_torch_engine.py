@@ -1,8 +1,11 @@
 """The port's engine and micro-batcher against the JAX engine and batcher.
 
 Both engines ingest the same PDFs with the same deterministic hash
-encoder, so their slabs hold identical f32 rows; both use the pure-Python
-BM25 index (the port's is a copy of it). Results are compared by
+encoder, so their slabs hold identical f32 rows. The engines fixture runs
+each test twice: with RAG_TPU_NATIVE_BM25=0 (both engines on the
+pure-Python BM25 index, the port's a copy of it) and on the default path
+(the port's native index; the JAX engine's native index where its library
+is built, else its Python one). Results are compared by
 (document, chunk_index): same sets, scores within SCORE_TOL (f32 dots of
 unit vectors summed in another order, and XLA's CPU FMA contraction of
 the blend: a few ulps), order free only among scores tied within it.
@@ -30,6 +33,8 @@ from rust_local_rag_tpu_torch.engine.chunk_store import ChunkStore as TStore
 from rust_local_rag_tpu_torch.engine.rag_engine import RagEngine as TEngine
 from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService as TService
 from rust_local_rag_tpu_torch.ops import score_segmax as tss
+from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex as TLexical
+from rust_local_rag_tpu_torch.ops.native_bm25 import NativeLexicalIndex
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher as TBatcher
 from rust_local_rag_tpu_torch.utils.rwlock import RwLock as TLock
 
@@ -71,11 +76,20 @@ QUERIES = [
 ]
 
 
+@pytest.fixture(params=["python_bm25", "default_bm25"])
+def bm25(request, monkeypatch):
+    """The BM25 index both engines build: RAG_TPU_NATIVE_BM25=0, or unset."""
+    if request.param == "python_bm25":
+        monkeypatch.setenv("RAG_TPU_NATIVE_BM25", "0")
+    else:
+        monkeypatch.delenv("RAG_TPU_NATIVE_BM25", raising=False)
+    return request.param
+
+
 @pytest.fixture
-def engines(tmp_path, monkeypatch, request):
+def engines(tmp_path, bm25, request):
     """(jax_engine, port_engine) over the same documents; the slab capacity
     is request.param (default 1024)."""
-    monkeypatch.setenv("RAG_TPU_NATIVE_BM25", "0")
     capacity = getattr(request, "param", 1024)
     j = JEngine(str(tmp_path / "jax"), JService(HashEncoder(dim=DIM)))
     t = TEngine(str(tmp_path / "port"), TService(HashEncoder(dim=DIM)), device="cpu")
@@ -85,6 +99,8 @@ def engines(tmp_path, monkeypatch, request):
     for i in range(6):
         data = _doc(i, rng)
         assert j.add_document(f"doc{i}.pdf", data) == t.add_document(f"doc{i}.pdf", data) > 0
+    want = TLexical if bm25 == "python_bm25" else NativeLexicalIndex
+    assert type(t.lexical_index) is want
     return j, t
 
 
@@ -245,16 +261,17 @@ def test_add_document_replace_and_skip(engines):
 
 
 def test_batcher_other_lanes_raise_and_empty_store(tmp_path):
+    """Every lane answers on an empty store with no results: the hot and
+    MMR hot lanes (rerank off) and the general lane (rerank on, with and
+    without diversity); none raises."""
     t = TEngine(str(tmp_path), TService(HashEncoder(dim=DIM)), device="cpu")
     b = TBatcher(t, TLock(), window_ms=1)
     try:
         assert b.search("anything", 5, 0.0, None, use_reranker=False) == []
-        with pytest.raises(NotImplementedError, match="MMR"):
-            b.search("anything", 5, 0.3, None, use_reranker=False)
-        with pytest.raises(NotImplementedError, match="MMR"):
-            b.search("anything", 5, 0.3, None, use_reranker=True)
-        # rerank-on requests have lanes now: an empty store answers []
+        assert b.search("anything", 5, 0.3, None, use_reranker=False) == []
+        assert b.search("anything", 5, 0.3, None, use_reranker=True) == []
         assert b.search("anything", 5, 0.0, None, use_reranker=True) == []
+        assert t.search_with_diversity("anything", 5, 0.3) == []
     finally:
         b.stop()
 

@@ -98,7 +98,14 @@ def test_hash_tokenizer_and_helpers_match():
         np.testing.assert_array_equal(x, y)
 
 
-def test_load_tokenizer_backends(tmp_path):
+def test_load_tokenizer_backends(tmp_path, monkeypatch):
+    """The native tokenizer by default, the pure-Python one under
+    RAG_TPU_NATIVE_TOKENIZER=0, the hash tokenizer without a file."""
+    from rust_local_rag_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
+
+    monkeypatch.delenv("RAG_TPU_NATIVE_TOKENIZER", raising=False)
+    assert isinstance(ttok.load_tokenizer(TOK_JSON), NativeWordPieceTokenizer)
+    monkeypatch.setenv("RAG_TPU_NATIVE_TOKENIZER", "0")
     assert isinstance(ttok.load_tokenizer(TOK_JSON), ttok.WordPieceTokenizer)
     assert isinstance(ttok.load_tokenizer(str(tmp_path / "missing.json")), ttok.HashTokenizer)
 
