@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi); fails when torch.cuda.is_available() is false;
 2. build: nvcc builds every kernel of the port from csrc/*.cu and g++ its
-   two host libraries from csrc/*.cpp (the BM25 index and the WordPiece
-   tokenizer; one process per source, started together); prints the
+   three host libraries from csrc/*.cpp (the BM25 index, the WordPiece
+   tokenizer and the response serializer; one process per source,
+   started together); prints the
    seconds and the -Xptxas -v lines;
 3. kernel vs plain: the masked and the unmasked score + segment-max
    kernels against their plain versions on the card, N = 65,536, D = 768,
@@ -62,9 +63,47 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    object lane (same ordered slots, scores within 1e-4; a divergence is
    allowed only where the two picks' MMR values tie within 2e-4, printed
    and counted);
-6. segmented_topk: the unmasked kernel's own path (bench.py's exact
+6. the server tier, on a copy of the saved index with the committed
+   models and RAG_TPU_FUSED_ATTN=1: server_start (build_runtime,
+   prepare: the worker supervisor, warmup and every response fragment,
+   then HttpServer.run, the serve loop of main, on a thread; seconds
+   until /readyz answers 200); entry_point (`python -m
+   rust_local_rag_tpu_torch` on its own copy: ready, one hot-lane answer
+   equal to the in-process server's, exit 0 on SIGTERM after the
+   graceful flush); reindex (the three PDFs and two new ones: POST
+   /reindex until the job completes, /jobs/active null, a second reindex
+   hash-skips all five with the chunk count unchanged, an MCP session's
+   GET /mcp stream receives both completions, progress_tracking.log has
+   their lines); http_check (a burst of 16 in each of the hot, MMR,
+   judged and object lanes over HTTP, sent as http_latency's are,
+   against the in-process batcher on the same engine and query rows: hot
+   and MMR equal within 1e-6 up to ties, judged and object under the
+   rerank_check rules with differences printed and counted; MCP
+   initialize, tools/list, search_documents equal to
+   format_search_results of the batcher's answer, get_stats,
+   get_job_status, calibrate_reranker; bad bodies 400; the launch counts
+   reset just before each HTTP burst and each MCP search_documents /
+   calibrate_reranker call and read just after it, before anything runs
+   in process: the masked kernel and attention above 0 for each,
+   attention launches = 4 x judge forwards + 6 x query-encoder forwards,
+   judge forwards only in the lanes that rerank; the serializer against
+   json.dumps of to_dict on one 16-query batch); http_latency (bursts of
+   1, 16, 64 keep-alive clients in the hot and judged lanes, sent by a
+   client process of its own, every request of a burst released at once,
+   median of 5, beside the in-process median of the same run, with the
+   batch sizes and arrival spread the batcher saw); gate_check (ROADMAP
+   C2: a second runtime reindexes the eval corpus, 31 authored documents
+   and 45 distractors, over HTTP; the 168 dev queries go one at a time
+   with baseline.yaml's parameters, once through the judged lane
+   (diversity 0 in the body) and once with the eval harness's own body
+   (no diversity_factor: the object lane with MMR at the server's
+   default 0.3); in each pass the 15 rejection queries and the first 33
+   retrieval queries are replayed in process on the card, which must
+   decide as the HTTP answers did, and on a CPU copy under the
+   rerank_check rules);
+7. segmented_topk: the unmasked kernel's own path (bench.py's exact
    top-k), checked against torch.topk over the full scores;
-7. times (CUDA events around a back-to-back run of calls, after a
+8. times (CUDA events around a back-to-back run of calls, after a
    warm-up, median of repeats, per call): each kernel, its plain version
    and a library call against the bound (score + segment-max at Q 1, 2,
    4, 8, 16 and 128, f32 and bf16, with a plain read of the slab beside
@@ -73,8 +112,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    included, the measure of earlier runs) in one table; search latency
    per burst, rerank burst latency per lane and a stage breakdown; ingest
    rate; MMR burst latency and the MMR lane's stage spans; each printed as
-   a JSON line naming the card. A host_libs line gives the two host
-   libraries' build seconds and times against their pure-Python twins.
+   a JSON line naming the card. A host_libs line gives the three host
+   libraries' build seconds and times against their pure-Python twins
+   (the serializer against json.dumps of to_dict).
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -85,9 +125,12 @@ from __future__ import annotations
 
 import argparse
 import copy
+import http.client
 import json
 import os
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -102,7 +145,8 @@ import numpy as np
 import torch
 
 import rust_local_rag_tpu_torch.models.encoder as encoder_module
-from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights
+from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights, get_embedding_model
+from rust_local_rag_tpu_torch.engine import persistence
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta
 from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine
 from rust_local_rag_tpu_torch.kernels import build
@@ -132,8 +176,14 @@ from rust_local_rag_tpu_torch.ops.score_segmax import (
     score_segmax_plain,
     segmented_topk,
 )
+from rust_local_rag_tpu_torch.server.app import build_runtime, prepare
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher
+from rust_local_rag_tpu_torch.server.fastpath import HttpServer
+from rust_local_rag_tpu_torch.server.formatting import format_search_results
+from rust_local_rag_tpu_torch.server.http_api import App
 from rust_local_rag_tpu_torch.utils.rwlock import RwLock
+
+from eval_harness.corpus import generate_corpus
 
 N_SLAB = 65536
 DIM = 768
@@ -1198,9 +1248,9 @@ def cpu_copy(engine, tmp: str):
     return cpu_engine(engine, tmp, "cpu_copy", RerankerService(TransformerReranker.from_assets(device="cpu")))
 
 
-def judged_pass(engine, queries):
+def judged_pass(engine, queries, top_k: int = TOP_K):
     """The judged lane's engine calls, as SearchBatcher makes them."""
-    pending = engine.dispatch_search(queries, TOP_K, JUDGED_WEIGHTS, rejection_threshold=0.0,
+    pending = engine.dispatch_search(queries, top_k, JUDGED_WEIGHTS, rejection_threshold=0.0,
                                      rejection_cosine_floor=0.0)
     pj = engine.judge_columnar(pending, queries, weights=JUDGED_WEIGHTS, **JUDGED_GATE)
     pre = pj.col.slots.copy()
@@ -1423,6 +1473,728 @@ def run_rerank(engine, batcher, dev, card: str, seconds: dict, rng, probs, tmp: 
     return out
 
 
+# --------------------------------------------------------------- server ----
+
+# what a user sends to /search for each lane (a bare {"query": ...} takes
+# the object lane: the HTTP defaults are diversity 0.3 with the reranker on)
+HTTP_LANES = {
+    "hot": {"diversity_factor": 0, "use_reranker": False},
+    "mmr": {"diversity_factor": DIVERSITY, "use_reranker": False},
+    "judged": {"diversity_factor": 0, "use_reranker": True, "weights": {"reranker": 0.0, "initial": 1.0},
+               **JUDGED_GATE},
+    "object": {},
+}
+# the serializer writes 7 fractional digits (a parsed score is within 5e-8
+# of its f32), and batches of other shapes sum f32 dots of unit vectors in
+# other orders (~1e-7): an HTTP answer and the in-process one agree within
+SERVER_TOL = 1e-6
+HTTP_BURSTS = (1, 16, 64)
+SERIALIZER_SOURCE = "rust_local_rag_tpu_torch/csrc/serializer.cpp"
+GATE_QUERIES = "eval_harness/ground_truth/queries.jsonl"
+GATE_TOP_K = 5  # eval_harness/configs/baseline.yaml top_k
+GATE_REPLAY = (15, 33)  # rejection queries, then the first retrieval queries, replayed on a CPU copy
+# gate_check's two bodies: the judged lane (diversity 0, named), and the
+# eval harness's own body (eval_harness/runner.py evaluate_query: query,
+# top_k and baseline.yaml's search_params, no diversity_factor), which the
+# server's defaults (diversity 0.3, reranker on) send to the object lane
+# with MMR
+GATE_BODIES = {"judged": HTTP_LANES["judged"],
+               "harness": {k: v for k, v in HTTP_LANES["judged"].items()
+                           if k not in ("diversity_factor", "use_reranker")}}
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BAD_SEARCH = [b"{not json", b"[1]", b'{"query": "x", "top_k": "many"}', b'{"query": "x", "diversity_factor": NaN}',
+              b'{"query": "x", "use_reranker": "yes"}', b'{"query": "x", "rejection_threshold": "high"}',
+              b'{"query": "x", "rejection_unseen_mass": Infinity}']
+
+
+class Http:
+    """One keep-alive client connection (http.client: the card's machine
+    has no requests)."""
+
+    def __init__(self, port: int):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def call(self, method: str, path: str, body=None, headers=None):
+        data = body if isinstance(body, bytes) or body is None else json.dumps(body).encode()
+        self.conn.request(method, path, body=data, headers=headers or {})
+        r = self.conn.getresponse()
+        raw = r.read()
+        parsed = json.loads(raw) if "json" in (r.getheader("Content-Type") or "") else raw
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, parsed
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+# the burst client of http_check and http_latency, run as a process of its
+# own so that its threads do not share the server's interpreter lock: one
+# keep-alive connection a client; each stdin line, a JSON list of /search
+# bodies, is sent at once (every thread released by one barrier) and
+# answered on stdout with the milliseconds from the release to the last
+# answer, the statuses and the results
+BURST_CLIENT = r"""
+import http.client, json, sys, threading, time
+port, n = int(sys.argv[1]), int(sys.argv[2])
+conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=600) for _ in range(n)]
+for line in sys.stdin:
+    bodies = [json.dumps(b).encode() for b in json.loads(line)]
+    go = threading.Barrier(len(bodies) + 1)
+    out = [None] * len(bodies)
+
+    def one(i):
+        go.wait()
+        conns[i].request("POST", "/search", body=bodies[i])
+        r = conns[i].getresponse()
+        out[i] = (r.status, r.read())
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    go.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"ms": ms, "status": [st for st, _ in out],
+                      "results": [json.loads(b)["results"] if st == 200 else b.decode()[:300] for st, b in out]}),
+          flush=True)
+"""
+
+
+class BurstClient:
+    """BURST_CLIENT in a subprocess, n keep-alive connections to the port."""
+
+    def __init__(self, port: int, n: int):
+        self.proc = subprocess.Popen([sys.executable, "-c", BURST_CLIENT, str(port), str(n)], stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True)
+
+    def burst(self, lane: str, queries: list, top_k: int = TOP_K):
+        """(ms from the release of the burst's requests to its last answer,
+        each query's parsed results): each query a concurrent POST /search
+        on its own keep-alive connection."""
+        self.proc.stdin.write(json.dumps([{"query": q, "top_k": top_k, **HTTP_LANES[lane]} for q in queries]) + "\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"the burst client exited with {self.proc.wait(timeout=60)}")
+        out = json.loads(line)
+        if set(out["status"]) != {200}:
+            raise AssertionError(f"/search answered {out['status']}: {out['results']}")
+        return out["ms"], out["results"]
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def lane_args(p: dict):
+    """(diversity, QueryWeights or None, submit options) of a /search
+    body's parameters p, with the server's defaults."""
+    kw = {k: v for k, v in p.items() if k.startswith("rejection_")}
+    w = p.get("weights")
+    return p.get("diversity_factor", 0.3), QueryWeights(**w) if w else None, dict(kw, use_reranker=p.get(
+        "use_reranker", True))
+
+
+def serve_runtime(ctx):
+    """ctx served by HttpServer.run, the serve loop of main, on a thread."""
+    server = HttpServer(App(ctx), "127.0.0.1", 0)
+    ready = threading.Event()
+    thread = threading.Thread(target=server.run, kwargs={"ready": ready.set}, daemon=True)
+    thread.start()
+    if not ready.wait(60):
+        raise AssertionError("the server did not start")
+    return server, thread
+
+
+def stop_runtime(ctx, server, thread) -> None:
+    ctx.supervisor.stop(timeout=30)
+    server.stop()
+    thread.join(timeout=60)
+    ctx.batcher.stop()
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+
+
+def wait_ready(port: int, timeout: float, proc=None) -> float:
+    """Seconds until GET /readyz answers 200."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode} before it was ready")
+        try:
+            c = Http(port)
+            status = c.call("GET", "/readyz")[0]
+            c.close()
+            if status == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"/readyz did not answer 200 within {timeout} s")
+
+
+def wait_job(c: Http, job_id: str, timeout: float = 900) -> dict:
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        job = c.call("GET", f"/jobs/{job_id}")[2]
+        if job["status"] in ("completed", "failed"):
+            return job
+        time.sleep(0.05)
+    raise AssertionError(f"job {job_id} did not finish in {timeout} s")
+
+
+def batcher_burst(batcher, lane: str, queries: list, top_k: int = TOP_K):
+    """(ms, answers) of the same burst submitted in process."""
+    div, weights, kw = lane_args(HTTP_LANES[lane])
+    t0 = time.perf_counter()
+    futs = [batcher.submit(q, top_k, div, weights, **kw) for q in queries]
+    res = [f.result(timeout=600) for f in futs]
+    return (time.perf_counter() - t0) * 1e3, res
+
+
+def compare_http(lane: str, got: list, want: list, queries: list, near: list, worst: dict, what: str) -> None:
+    """HTTP answers (parsed rows) against the in-process SearchBatcher's on
+    the same engine. Hot and MMR lanes: the same rows up to ties within
+    SERVER_TOL. Judged and object lanes, the rerank_check rules (a batch of
+    another shape may round the judge's bf16 elsewhere): first-stage
+    scores of common rows within SERVER_TOL, judge outputs within RR_TOL /
+    LOGPROB_TOL; where the judge outputs agree within SERVER_TOL the
+    answers must be equal, else an order or membership difference is
+    printed and counted; a judged-lane rejection that differs only where
+    the best yes-probability lies within RR_TOL of the judge-rescue term."""
+    for q, a, b in zip(queries, got, want):
+        b = [r.to_dict() for r in b]
+        if lane in ("hot", "mmr"):
+            key = lambda r: (r["chunk_id"], r["score"], r["embedding_score"], r["lexical_score"])  # noqa: E731
+            same_topk([key(r) for r in a], [key(r) for r in b], SERVER_TOL, f"{what} {q!r}")
+            continue
+        if bool(a) != bool(b):
+            best = max(r["reranker_score"] for r in a + b)
+            if lane != "judged" or abs(best - JUDGED_GATE["rejection_unseen_judge"]) > RR_TOL:
+                raise AssertionError(f"{what} {q!r}: {len(a)} rows over HTTP, {len(b)} in process")
+            near.append({"lane": lane, "check": what, "query": q, "kind": "gate", "best_yes_p": best})
+            continue
+        ga, gb = {r["chunk_id"]: r for r in a}, {r["chunk_id"]: r for r in b}
+        rr_diff = 0.0
+        for cid in set(ga) & set(gb):
+            x, y = ga[cid], gb[cid]
+            first = max(abs(x[k] - y[k]) for k in ("initial_score", "embedding_score", "lexical_score"))
+            if first > SERVER_TOL:
+                raise AssertionError(f"{what} {q!r} {cid}: first-stage scores differ by {first}")
+            compare_judge((x["reranker_score"], x["yes_logprob"], x["no_logprob"]),
+                          (y["reranker_score"], y["yes_logprob"], y["no_logprob"]), f"{what} {q!r} {cid}", worst)
+            rr_diff = max(rr_diff, abs(x["reranker_score"] - y["reranker_score"]))
+        same = [r["chunk_id"] for r in a] == [r["chunk_id"] for r in b] and all(
+            abs(ga[c]["score"] - gb[c]["score"]) <= SERVER_TOL for c in ga)
+        if not same:
+            if rr_diff <= SERVER_TOL:
+                raise AssertionError(f"{what} {q!r}: the answers differ with the same judge outputs")
+            near.append({"lane": lane, "check": what, "query": q, "kind": "order", "max_rr_diff": rr_diff})
+
+
+def mcp_call(c: Http, method: str, params=None, sid=None, rid: int = 1):
+    body = {"jsonrpc": "2.0", "id": rid, "method": method}
+    if params is not None:
+        body["params"] = params
+    status, headers, out = c.call("POST", "/mcp", body, {"Mcp-Session-Id": sid} if sid else None)
+    if status != 200 or "error" in out or out["result"].get("isError"):
+        raise AssertionError(f"MCP {method}: {status} {out}")
+    return headers, out["result"]
+
+
+def sse_reader(port: int, sid: str, events: list) -> threading.Thread:
+    """A thread reading the session's GET /mcp stream into `events` (the
+    JSON-RPC messages) until the stream ends."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    conn.request("GET", "/mcp", headers={"Accept": "text/event-stream", "Mcp-Session-Id": sid})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"GET /mcp answered {resp.status}")
+
+    def read():
+        try:
+            while line := resp.readline():
+                if line.startswith(b"data: "):
+                    events.append(json.loads(line[6:]))
+        finally:
+            conn.close()
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    return t
+
+
+def timed_ms(fn, reps: int = 20) -> float:
+    """Median host milliseconds of fn() (host code: no device work)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chunks: int) -> dict:
+    """`python -m rust_local_rag_tpu_torch` on its own copy of the index:
+    ready, one hot-lane answer equal to the in-process server's, exit 0 on
+    SIGTERM after the graceful flush."""
+    port = free_port()
+    logs = os.path.join(tmp, "entry_logs")
+    env = dict(os.environ, DATA_DIR=data_dir, DOCUMENTS_DIR=os.path.join(tmp, "entry_docs"), LOG_DIR=logs,
+               MCP_HTTP_BIND=f"127.0.0.1:{port}",
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    env.pop("RAG_TPU_PLATFORM", None)
+    out_path = os.path.join(tmp, "entry_out.txt")
+    with open(out_path, "w") as out_f:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "rust_local_rag_tpu_torch"], cwd=ROOT, env=env,
+                                stdout=out_f, stderr=subprocess.STDOUT)
+        try:
+            ready_s = wait_ready(port, 600, proc)
+            body = {"query": query, "top_k": TOP_K, **HTTP_LANES["hot"]}
+            a, b = Http(port).call("POST", "/search", body), Http(ref_port).call("POST", "/search", body)
+            if a[0] != 200 or b[0] != 200:
+                raise AssertionError(f"entry point /search: {a[0]} and {b[0]}")
+            key = lambda r: (r["chunk_id"], r["score"], r["embedding_score"], r["lexical_score"])  # noqa: E731
+            same_topk([key(r) for r in a[2]["results"]], [key(r) for r in b[2]["results"]], SERVER_TOL,
+                      "entry point vs in-process server")
+            t_stop = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            stop_s = time.perf_counter() - t_stop
+            if code != 0:
+                raise AssertionError(f"python -m rust_local_rag_tpu_torch exited {code}")
+        except BaseException:
+            with open(out_path) as f:
+                log(f"entry point output:\n{f.read()[-3000:]}")
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(os.path.join(logs, "rust-local-rag-tpu.log")) as f:
+        messages = [json.loads(line)["message"] for line in f]
+    # graceful_flush: the write lock, then a save with the reference's 5 s
+    # budget (main.rs:217-241); a save past it leaves the index on disk as
+    # it was (written to a temporary name and renamed)
+    flush = [m for m in messages if m.startswith(("RAG state successfully saved", "Save operation timed out"))]
+    if ("Lock acquired. Flushing state to disk (5s timeout)..." not in messages or len(flush) != 1
+            or messages[-1] != "MCP server shut down gracefully"):
+        raise AssertionError(f"entry point: no graceful flush in its log ({messages[-3:]})")
+    state = persistence.load_index(data_dir, get_embedding_model()).state
+    if state is None or len(state.metas) != n_chunks:
+        raise AssertionError("entry point: the index on disk does not load after the shutdown")
+    return {"entry_ready_s": ready_s, "entry_total_s": time.perf_counter() - t0, "entry_sigterm_to_exit_s": stop_s,
+            "entry_exit_code": code, "entry_same_answer": a[2] == b[2], "entry_flush": flush[0],
+            "entry_index_loads_after_exit": len(state.metas)}
+
+
+def run_server(engine, card: str, seconds: dict, tmp: str, pdfs: dict, rng, probs) -> dict:
+    """The server tier on the card over a copy of the saved index (the
+    33,033 ingest chunks; slab 65,536, so the masked kernel runs), with
+    the committed encoder and reranker and RAG_TPU_FUSED_ATTN=1."""
+    env_keys = ("RAG_TPU_FUSED_ATTN", "RAG_TPU_RERANK_MODEL", "LOG_DIR")
+    os.environ.update(RAG_TPU_FUSED_ATTN="1", RAG_TPU_RERANK_MODEL=engine.reranker.model_name,
+                      LOG_DIR=os.path.join(tmp, "server_logs"))
+    docs = os.path.join(tmp, "server_docs")
+    os.makedirs(docs)
+    for name, data in pdfs.items():
+        with open(os.path.join(docs, name), "wb") as f:
+            f.write(data)
+
+    def data_copy(name: str) -> str:
+        """The files of the saved index (the top level of tmp)."""
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        for f in os.listdir(tmp):
+            if os.path.isfile(os.path.join(tmp, f)):
+                shutil.copy2(os.path.join(tmp, f), d)
+        return d
+
+    out = {}
+    ctx = server = thread = client = None
+    try:
+        with phase("server_start", card, seconds):
+            t0 = time.perf_counter()
+            built = build.build_all()  # main's first step; up to date after the build phase
+            t_build = time.perf_counter()
+            ctx = build_runtime(data_copy("server_data"), docs, device="cuda")
+            t_runtime = time.perf_counter()
+            prepare(ctx)
+            t_prepare = time.perf_counter()
+            server, thread = serve_runtime(ctx)
+            bind_s = wait_ready(server.port, 60)
+            start = {"server_start_s": time.perf_counter() - t0, "build_all_s": t_build - t0,
+                     "built": sorted(n for n, r in built.items() if r.seconds), "build_runtime_s": t_runtime - t_build,
+                     "warmup_and_fragments_s": t_prepare - t_runtime, "bind_to_ready_s": bind_s,
+                     "chunks": len(ctx.engine.store), "fragments": ctx.batcher._serializer().count()}
+            if start["chunks"] != start["fragments"] or start["chunks"] <= N_SLAB // 2:
+                raise AssertionError(f"server_start: {start}")
+            log({**start, "card": card})
+            out["start"] = start
+
+        with phase("entry_point", card, seconds):
+            ep = entry_point_check(data_copy("entry_data"), server.port, tmp, queries_for(rng, 1, probs)[0],
+                                   len(ctx.engine.store))
+            log({**ep, "card": card})
+            out["entry_point"] = ep
+
+        c = Http(server.port)
+        with phase("reindex", card, seconds):
+            for i in range(2):  # two new PDFs beside the smoke's three
+                pages = ["\n\n".join([f"BULLETIN {i}.{p}"] + passages(rng, 3, probs, sentences=(5, 6)))
+                         for p in range(3)]
+                with open(os.path.join(docs, f"bulletin_{i}.pdf"), "wb") as f:
+                    f.write(make_pdf(pages))
+            headers, _ = mcp_call(c, "initialize")
+            sid = headers["mcp-session-id"]
+            events: list = []
+            reader = sse_reader(server.port, sid, events)
+            session = server.app.hub.get(sid)
+            deadline = time.perf_counter() + 30
+            while not session._listeners and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            chunks0 = c.call("GET", "/stats")[2]["chunks"]
+            jobs, times = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                status, _, body = c.call("POST", "/reindex")
+                if status != 200:
+                    raise AssertionError(f"POST /reindex answered {status}")
+                jobs.append(wait_job(c, body["job_id"]))
+                times.append(time.perf_counter() - t0)
+                if c.call("GET", "/jobs/active")[2] is not None:
+                    raise AssertionError("/jobs/active is not null after the job")
+                jobs[-1]["chunks"] = c.call("GET", "/stats")[2]["chunks"]
+            # the push follows the job by up to one 0.4 s poll of its watcher
+            want = {(j["job_id"], "completed") for j in jobs}
+            deadline = time.perf_counter() + 30
+            while not want <= {(e["params"]["data"]["job_id"], e["params"]["data"]["status"]) for e in events}:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"no completion pushed for {want} in {len(events)} events")
+                time.sleep(0.05)
+            status, _, _ = c.call("DELETE", "/mcp", headers={"Mcp-Session-Id": sid})
+            reader.join(timeout=30)
+            if status != 200 or reader.is_alive():
+                raise AssertionError("the MCP session's stream did not end on DELETE")
+            pushed = {(e["params"]["data"]["job_id"], e["params"]["data"]["status"]) for e in events}
+            with open(os.path.join(os.environ["LOG_DIR"], "progress_tracking.log")) as f:
+                lines = f.read().splitlines()
+            done = {j["job_id"]: [ln for ln in lines if f"job={j['job_id']} " in ln and " event=done " in ln]
+                    for j in jobs}
+            for j in jobs:
+                if j["status"] != "completed" or j["error"] or not j["progress"] == j["total"] == len(pdfs) + 2:
+                    raise AssertionError(f"reindex job {j}")
+                if (j["job_id"], "completed") not in pushed or len(done[j["job_id"]]) != 1:
+                    raise AssertionError(f"job {j['job_id']}: no completion pushed or logged")
+            if not (jobs[0]["chunks"] > chunks0 and jobs[1]["chunks"] == jobs[0]["chunks"]):
+                raise AssertionError(f"reindex: chunks {chunks0} -> {jobs[0]['chunks']} -> {jobs[1]['chunks']}")
+            if "skipped=5 embedded=0" not in done[jobs[1]["job_id"]][0]:
+                raise AssertionError(f"the second reindex did not hash-skip: {done[jobs[1]['job_id']][0]}")
+            rx = {"reindex_s": times, "documents": jobs[0]["total"], "chunks_before": chunks0,
+                  "chunks_after": [j["chunks"] for j in jobs], "pushed_notifications": len(events),
+                  "progress_lines": sum(f"job={j['job_id']} " in ln for j in jobs for ln in lines),
+                  "first_done": done[jobs[0]["job_id"]][0].split(" event=done ")[1]}
+            log({**rx, "card": card})
+            out["reindex"] = rx
+
+        client = BurstClient(server.port, max(HTTP_BURSTS))
+        with phase("http_check", card, seconds):
+            near: list = []
+            worst = {"rr": 0.0, "logprob": 0.0}
+            # the encoder pads a batch to its longest query, so a query's
+            # bf16 embedding depends on the batch the batcher formed: the
+            # in-process burst reuses the rows the HTTP burst computed
+            q_rows = {}
+            prep = ctx.engine._prep_queries
+            encoder = ctx.engine.embedding_service._model.encoder
+            judge = ctx.engine.reranker._model
+            forwards = {"encoder": 0, "judge": 0}
+
+            def recording_prep(queries, nq_pad):
+                out = prep(queries, nq_pad)
+                q_rows.update(zip(queries, out))
+                return out
+
+            def replay_prep(queries, nq_pad):
+                out = torch.zeros((nq_pad, DIM), dtype=torch.float32, device=ctx.engine.device)
+                for i, q in enumerate(queries):
+                    out[i] = q_rows[q]
+                return out
+
+            def zero_launches() -> None:
+                score_segmax.launches = fused_attention.launches = 0
+                forwards.update(encoder=0, judge=0)
+
+            def read_launches(what: str, judged: bool) -> dict:
+                """The launches since zero_launches, all of them from the
+                HTTP requests just answered: the masked kernel above 0, and
+                every attention launch one of a judge (4 layers) or query
+                encoder (6 layers) forward, judge forwards only where the
+                lane reranks."""
+                got = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches,
+                       "judge_forwards": forwards["judge"], "query_encoder_forwards": forwards["encoder"]}
+                want = judge.cfg.depth * forwards["judge"] + encoder.cfg.depth * forwards["encoder"]
+                if (got["score_segmax_masked"] <= 0 or got["fused_attention"] <= 0
+                        or got["fused_attention"] != want or (forwards["judge"] > 0) != judged):
+                    raise AssertionError(f"http_check {what}: launches {got}, want {want} attention launches "
+                                         f"and judge forwards {'above' if judged else 'at'} 0")
+                return got
+
+            http_launches = {}
+            encoder.forward = counting(encoder.forward, forwards, "encoder")
+            judge.model.forward_last_logits = counting(judge.model.forward_last_logits, forwards, "judge")
+            try:
+                for lane in HTTP_LANES:
+                    qs = queries_for(rng, 16, probs)
+                    ctx.engine._prep_queries = recording_prep
+                    zero_launches()
+                    _, got = client.burst(lane, qs)
+                    http_launches[lane] = read_launches(lane, lane in ("judged", "object"))
+                    ctx.engine._prep_queries = replay_prep
+                    _, want = batcher_burst(ctx.batcher, lane, qs)
+                    del ctx.engine._prep_queries
+                    compare_http(lane, got, want, qs, near, worst, f"http_check {lane}")
+                    log({"http_check": lane, "queries": len(qs), "rows": sum(map(len, got)),
+                         "rejected": sum(not a for a in got), "launches": http_launches[lane]})
+                q = queries_for(rng, 1, probs)[0]
+                headers, init = mcp_call(c, "initialize")
+                sid = headers["mcp-session-id"]
+                tools = mcp_call(c, "tools/list", sid=sid)[1]["tools"]
+                zero_launches()
+                text = mcp_call(c, "tools/call", {"name": "search_documents", "arguments": {
+                    "query": q, "top_k": TOP_K, "diversity_factor": 0, "use_reranker": False}}, sid)[1]["content"][0][
+                    "text"]
+                http_launches["mcp_search_documents"] = read_launches("MCP search_documents", False)
+                zero_launches()
+                cal_text = mcp_call(c, "tools/call", {"name": "calibrate_reranker", "arguments": {
+                    "query": q, "sample_size": 5}}, sid)[1]["content"][0]["text"]
+                http_launches["mcp_calibrate_reranker"] = read_launches("MCP calibrate_reranker", True)
+            finally:
+                del encoder.forward, judge.model.forward_last_logits
+            stats_text = mcp_call(c, "tools/call", {"name": "get_stats"}, sid)[1]["content"][0]["text"]
+            job_text = mcp_call(c, "tools/call", {"name": "get_job_status", "arguments": {
+                "job_id": jobs[0]["job_id"]}}, sid)[1]["content"][0]["text"]
+            res = ctx.batcher.search(q, TOP_K, 0.0, None, use_reranker=False)
+            if text != f"Found {len(res)} results for '{q}':\n\n{format_search_results(res)}" or not res:
+                raise AssertionError("MCP search_documents differs from format_search_results of the batcher's answer")
+            if (init["protocolVersion"] != "2025-03-26" or len(tools) != 6 or "RAG System Stats" not in stats_text
+                    or '"status": "completed"' not in job_text or "Reranker Calibration Results" not in cal_text):
+                raise AssertionError("MCP initialize / tools/list / get_stats / get_job_status / calibrate_reranker")
+            bad = [c.call("POST", "/search", b)[0] for b in BAD_SEARCH]
+            if set(bad) != {400}:
+                raise AssertionError(f"bad /search bodies answered {bad}")
+            launches = {k: sum(x[k] for x in http_launches.values())
+                        for k in ("score_segmax_masked", "fused_attention")}
+            log({"http_launches": http_launches, "near_tolerance_cases": near, "count": len(near),
+                 "judge_max_diff_http_vs_inprocess": worst, "bad_inputs_400": len(bad), "card": card})
+            check_fallbacks(ctx.engine, ctx.batcher, "http_check")
+            out["launches"] = launches
+            # the serializer against json.dumps of to_dict, one 16-query hot batch
+            qs = queries_for(rng, 16, probs)
+            col = ctx.engine.fetch_columnar(ctx.engine.dispatch_search(qs, TOP_K))
+            ser = ctx.batcher._serializer()
+            planes = (col.slots[:16], col.vals[:16], col.emb[:16], col.lex[:16])
+            objs = [ctx.engine.results_from_columnar(col, qi) for qi in range(16)]
+            for body, res in zip(ser.serialize_batch(*planes, floor=col.floor), objs):
+                key = lambda r: (r["chunk_id"], r["score"], r["embedding_score"], r["lexical_score"])  # noqa: E731
+                same_topk([key(r) for r in json.loads(body)["results"]], [key(r.to_dict()) for r in res],
+                          SERVER_TOL, "serializer vs to_dict")
+            out["serializer"] = {
+                "batch16_serialize_ms": timed_ms(lambda: ser.serialize_batch(*planes, floor=col.floor)),
+                "batch16_json_dumps_ms": timed_ms(
+                    lambda: [json.dumps({"results": [r.to_dict() for r in res]}).encode() for res in objs]),
+                "batch16_objects_ms": timed_ms(lambda: [ctx.engine.results_from_columnar(col, qi) for qi in range(16)]),
+                "build_s": built["serializer"].seconds,
+            }
+            log({**out["serializer"], "card": card})
+
+        with phase("http_latency", card, seconds):
+            # what the batcher saw of each burst: the batch sizes it formed
+            # and the spread of the requests' arrivals
+            sizes, arrivals = [], []
+            dispatch, submit = ctx.engine.dispatch_search, ctx.batcher.submit
+
+            def recording_dispatch(queries, *a, **kw):
+                sizes.append(len(queries))
+                return dispatch(queries, *a, **kw)
+
+            def recording_submit(*a, **kw):
+                arrivals.append(time.perf_counter())
+                return submit(*a, **kw)
+
+            def seen():
+                out = (list(sizes), (max(arrivals) - min(arrivals)) * 1e3)
+                sizes.clear()
+                arrivals.clear()
+                return out
+
+            ctx.engine.dispatch_search, ctx.batcher.submit = recording_dispatch, recording_submit
+            rows = []
+            try:
+                for lane in ("hot", "judged"):
+                    for b in HTTP_BURSTS:
+                        h, p, hb, pb, hs = [], [], [], [], []
+                        for rep in range(6):  # HTTP and in process in turns; the first pair is a warm-up
+                            ms_h, _ = client.burst(lane, queries_for(rng, b, probs))
+                            batches_h, spread_h = seen()
+                            ms_p, _ = batcher_burst(ctx.batcher, lane, queries_for(rng, b, probs))
+                            batches_p, _ = seen()
+                            if rep:
+                                h.append(ms_h)
+                                p.append(ms_p)
+                                hb.append(batches_h)
+                                pb.append(batches_p)
+                                hs.append(spread_h)
+                        row = {"http_burst": b, "lane": lane, "top_k": TOP_K, "http_median_ms": statistics.median(h),
+                               "inprocess_median_ms": statistics.median(p),
+                               "diff_ms": statistics.median(h) - statistics.median(p), "http_ms": h, "inprocess_ms": p,
+                               "http_batches": hb, "inprocess_batches": pb, "http_arrival_spread_ms": hs}
+                        log({**row, "card": card})
+                        rows.append(row)
+            finally:
+                del ctx.engine.dispatch_search, ctx.batcher.submit
+            check_fallbacks(ctx.engine, ctx.batcher, "http_latency")
+            out["latency"] = rows
+        c.close()
+    finally:
+        if client is not None:
+            client.close()
+        if server is not None:
+            stop_runtime(ctx, server, thread)
+
+    with phase("gate_check", card, seconds):
+        out["gate"] = gate_check(card, tmp)
+    for k in env_keys:
+        os.environ.pop(k, None)
+    return out
+
+
+def gate_check(card: str, tmp: str) -> dict:
+    """ROADMAP C2: the eval corpus (31 authored documents + 45 distractors)
+    reindexed by a second runtime over HTTP; the 168 dev queries sent one at
+    a time with baseline.yaml's parameters, twice: through the judged lane
+    (diversity 0 named in the body), and with the eval harness's own body
+    (no diversity_factor: the object lane with MMR at the server's default
+    0.3). Then the 15 rejection queries and the first 33 retrieval queries
+    of each pass are replayed in process on the card, which must decide as
+    the HTTP answers did, and on a CPU copy under the rerank_check rules
+    (a gate decision may differ only where the plain side's best judged
+    yes-probability lies within RR_TOL of the judge-rescue term)."""
+    docs = os.path.join(tmp, "gate_docs")
+    names = generate_corpus(docs, with_distractors=True)
+    ctx = build_runtime(os.path.join(tmp, "gate_data"), docs, device="cuda")
+    prepare(ctx)
+    server, thread = serve_runtime(ctx)
+    try:
+        c = Http(server.port)
+        t0 = time.perf_counter()
+        job = wait_job(c, c.call("POST", "/reindex")[2]["job_id"])
+        reindex_s = time.perf_counter() - t0
+        stats = c.call("GET", "/stats")[2]
+        if job["status"] != "completed" or job["error"] or stats["documents"] != len(names):
+            raise AssertionError(f"gate_check reindex: {job} {stats}")
+        with open(os.path.join(ROOT, GATE_QUERIES)) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        answers = {lane: {} for lane in GATE_BODIES}
+        http_s = {}
+        for lane, params in GATE_BODIES.items():
+            t0 = time.perf_counter()
+            for r in rows:
+                status, _, body = c.call("POST", "/search", {"query": r["query"], "top_k": GATE_TOP_K, **params})
+                if status != 200:
+                    raise AssertionError(f"gate_check {lane} {r['query_id']}: {status}")
+                answers[lane][r["query_id"]] = body["results"]
+            http_s[lane] = time.perf_counter() - t0
+        c.close()
+        rej = [r for r in rows if r["is_rejection"]]
+        ret = [r for r in rows if not r["is_rejection"]]
+        # the replay: one query a batch, as the requests were served
+        replay = rej[:GATE_REPLAY[0]] + ret[:GATE_REPLAY[1]]
+        engine = ctx.engine
+        div, weights, kw = lane_args(GATE_BODIES["harness"])
+        q_embs = {}
+        best_yes = {}  # query -> the CPU copy's best judged yes-probability over its pool
+        prep = engine._prep_queries
+
+        def recording_prep(queries, nq_pad):
+            q_embs[tuple(queries)] = out = prep(queries, nq_pad)
+            return out
+
+        engine._prep_queries = recording_prep
+        try:
+            card_recs, card_obj = [], []
+            for r in replay:
+                pre, jc = judged_pass(engine, [r["query"]], GATE_TOP_K)
+                card_recs.append({"queries": [r["query"]], "pre_slots": pre, "jc": jc})
+                card_obj.append(ctx.batcher.search(r["query"], GATE_TOP_K, div, weights, **kw))
+        finally:
+            del engine._prep_queries
+        for r, rec, res in zip(replay, card_recs, card_obj):
+            _, rejected = judged_rows(rec["jc"], rec["pre_slots"], 0)
+            if rejected != (not answers["judged"][r["query_id"]]) or (not res) != (
+                    not answers["harness"][r["query_id"]]):
+                raise AssertionError(f"gate_check {r['query_id']}: in process (judged {rejected}, harness "
+                                     f"{not res}), over HTTP the opposite")
+        os.environ["RAG_TPU_FUSED_ATTN"] = "1"
+        cpu = cpu_copy(engine, tmp)
+        cpu._prep_queries = lambda queries, nq_pad: q_embs[tuple(queries)].cpu()
+        rerank = cpu._rerank_flat
+
+        def recording_rerank(queries, flat_inputs, nq):
+            """The object lane's judge over each query's pool, recording
+            the best yes-probability, which the judge-rescue term reads."""
+            out = rerank(queries, flat_inputs, nq)
+            for q, judged in zip(queries, out):
+                best_yes[q] = max((x.relevance for x in judged), default=float("-inf"))
+            return out
+
+        cpu._rerank_flat = recording_rerank
+        near: list = []
+        worst = {"rr": 0.0, "logprob": 0.0}
+        judge_t = JUDGED_GATE["rejection_unseen_judge"]
+        for r, rec, res in zip(replay, card_recs, card_obj):
+            pre, jc = judged_pass(cpu, rec["queries"], GATE_TOP_K)
+            compare_judged(rec, pre, jc, False, near, worst, f"gate_check {r['query_id']}, CPU copy")
+            what = f"gate_check harness {r['query_id']}, CPU copy"
+            plain = cpu.search_with_diversity_batch([r["query"]], GATE_TOP_K, div, weights, **kw)[0]
+            if bool(res) != bool(plain):
+                best = best_yes[r["query"]]
+                if abs(best - judge_t) > RR_TOL:
+                    raise AssertionError(f"{what}: gate {not res} vs {not plain}, plain best yes-p {best}")
+                near.append({"lane": "harness", "check": what, "query": r["query"], "kind": "gate",
+                             "plain_value": best, "threshold": judge_t})
+                continue
+            compare_object([res], [plain], [r["query"]], False, near, worst, what)
+        check_fallbacks(engine, ctx.batcher, "gate_check")
+        gate = {"documents": stats["documents"], "chunks": stats["chunks"], "reindex_s": reindex_s,
+                "queries": len(rows), "rejection_queries": len(rej), "retrieval_queries": len(ret),
+                "replayed": len(replay), "replay_near_cases": near, "replay_worst": worst}
+        for lane in GATE_BODIES:
+            got = answers[lane]
+            fired = sum(not got[r["query_id"]] for r in rows)
+            gate[lane] = {"body": GATE_BODIES[lane], "http_s": http_s[lane],
+                          "rejection_queries_empty": sum(not got[r["query_id"]] for r in rej),
+                          "retrieval_queries_empty": sum(not got[r["query_id"]] for r in ret),
+                          "fired": fired, "c2": "closed" if fired else "open"}
+        log({**gate, "card": card})
+        return gate
+    finally:
+        stop_runtime(ctx, server, thread)
+
+
 # ----------------------------------------------------------------- main ----
 
 
@@ -1579,8 +2351,10 @@ def main(argv=None) -> int:
             log({"mmr_burst": size, "diversity": DIVERSITY, "median_ms": statistics.median(lat), "min_ms": min(lat),
                  "max_ms": max(lat), "reps": len(lat), "card": card})
     log({"phase_seconds": seconds, "card": card})
+    srv = result["server"]
     masked_by_path = {"hot": result["launches"], "mmr": result["mmr"]["launches"],
-                      **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()}}
+                      **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()},
+                      "http": srv["launches"]["score_segmax_masked"]}
     log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
     bd, lx, tk = result["breakdown"], result["lexical"], result["tokenizer"]
     log({"host_libs": [{
@@ -1603,6 +2377,12 @@ def main(argv=None) -> int:
         "python_chunks_s": tk["chunks_python_s"],
         "texts": tk["tokenizer_check_texts"],
         "routed_texts": tk["routed_texts"],
+    }, {
+        "name": "serializer",
+        "source": SERIALIZER_SOURCE,
+        "copy_of": "native/serializer.cpp",
+        "build_s": built["serializer"].seconds,
+        **{k: v for k, v in srv["serializer"].items() if k != "build_s"},
     }], "card": card})
 
     log({"kernels": [{
@@ -1622,7 +2402,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES,
-        "launches": sum(x["fused_attention"] for x in rr["launches"].values()),
+        "launches": sum(x["fused_attention"] for x in rr["launches"].values()) + srv["launches"]["fused_attention"],
         "max_abs_err": max_err_attn,
         "ms": attn_main["ms"],
         "plain_ms": attn_main["plain_ms"],
@@ -1662,7 +2442,8 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
         engine = RagEngine.create(tmp, device=dev, reranker=reranker)
         t_create = time.perf_counter() - t0
         n_pdf = 0
-        for name, data in documents(rng, probs).items():
+        pdfs = documents(rng, probs)
+        for name, data in pdfs.items():
             n = engine.add_document(name, data)
             if n <= 0:
                 raise AssertionError(f"add_document({name}) indexed no chunks")
@@ -1798,6 +2579,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             engine.warmup()
             log({"duplicates_added": len(slots), "live_chunks": len(engine.store)})
         mmr = run_mmr(engine, batcher, card, seconds, rng_host, probs, tmp, texts[:N_DUPLICATES])
+        server = run_server(engine, card, seconds, tmp, pdfs, np.random.default_rng([args.seed, 10]), probs)
     finally:
         batcher.stop()
         engine.embedding_service.close()
@@ -1805,7 +2587,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
     padded = [p.out.shape[0] for _, p in recorded]
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
             "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
-            "lexical": lex_stats, "tokenizer": tok_stats}
+            "lexical": lex_stats, "tokenizer": tok_stats, "server": server}
 
 
 if __name__ == "__main__":

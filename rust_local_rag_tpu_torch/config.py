@@ -1,11 +1,12 @@
-"""Scoring weights, model names and ingest batch knobs read from the
-environment.
+"""Scoring weights, model names, directories and service knobs read from
+the environment.
 
-Copy of the parts of rust_local_rag_tpu/config.py that the search, rerank
-and ingest path reads, under the same environment variable names: four
-scoring weights validated to be finite and in [0, 1] and cached after
-first read, MAX_TOP_K, the embedding batch size, cooldown and timeout, the
-rerank model name and the prompts directory.
+Copy of rust_local_rag_tpu/config.py under the same environment variable
+names: four scoring weights validated to be finite and in [0, 1] and
+cached after first read, MAX_TOP_K, the embedding batch size, cooldown and
+timeout, the model names, the data / documents / log directories, the log
+level and size cap, the MCP bind address and endpoint, and the prompts
+directory.
 """
 
 from __future__ import annotations
@@ -88,6 +89,17 @@ class QueryWeights:
         self.reranker = reranker
         self.initial = initial
 
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "QueryWeights":
+        if not d:
+            return cls()
+        return cls(
+            embedding=d.get("embedding"),
+            lexical=d.get("lexical"),
+            reranker=d.get("reranker"),
+            initial=d.get("initial"),
+        )
+
 
 class ResolvedWeights:
     """Effective weights after override validation."""
@@ -136,6 +148,54 @@ def get_batch_timeout_s() -> float:
 def get_batch_cooldown_ms() -> int:
     """Pause between embedding batches (EMBEDDING_BATCH_COOLDOWN_MS)."""
     return _env_number("EMBEDDING_BATCH_COOLDOWN_MS", 0, int)
+
+
+def get_data_dir() -> str:
+    return os.environ.get("DATA_DIR", "./data")
+
+
+def get_documents_dir() -> str:
+    return os.environ.get("DOCUMENTS_DIR", "./documents")
+
+
+def get_log_dir() -> str:
+    """LOG_DIR, else /var/log/rust-local-rag-tpu where /var/log is
+    writable, else ./logs."""
+    env = os.environ.get("LOG_DIR")
+    if env:
+        return env
+    if os.path.isdir("/var/log") and os.access("/var/log", os.W_OK):
+        return "/var/log/rust-local-rag-tpu"
+    return "./logs"
+
+
+def get_log_level() -> str:
+    return os.environ.get("LOG_LEVEL", "info")
+
+
+def get_log_max_mb() -> int:
+    try:
+        return int(os.environ.get("LOG_MAX_MB", "5"))
+    except ValueError:
+        return 5
+
+
+def get_embedding_model() -> str:
+    """Embedding model name (RAG_TPU_EMBEDDING_MODEL, else the reference's
+    OLLAMA_EMBEDDING_MODEL); also the name of the index files on disk."""
+    return (
+        os.environ.get("RAG_TPU_EMBEDDING_MODEL")
+        or os.environ.get("OLLAMA_EMBEDDING_MODEL")
+        or "nomic-embed-text"
+    )
+
+
+def get_mcp_http_bind() -> str:
+    return os.environ.get("MCP_HTTP_BIND", "127.0.0.1:3046")
+
+
+def get_mcp_http_endpoint() -> str:
+    return os.environ.get("MCP_HTTP_ENDPOINT", "/mcp")
 
 
 def get_rerank_model() -> Optional[str]:

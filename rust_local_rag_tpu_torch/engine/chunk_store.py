@@ -8,6 +8,9 @@ device, no quantised mode and no mesh).
     new chunks refill holes first. Capacity doubles from 1024 on demand.
   * host: per-slot metadata and an id -> slot map. Embeddings live only on
     the device; persistence snapshots read the slab back in one copy.
+  * ``mutations`` counts every change of what the slots hold (add, remove,
+    compact), as in the JAX store: the response serializer keys its
+    "every fragment registered" state on it.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class ChunkStore:
         self._id_to_slot: Dict[str, int] = {}
         self._free: List[int] = []
         self._high_water = 0  # slots [0, high_water) may be valid
+        self.mutations = 0
 
     # ----- introspection -------------------------------------------------
 
@@ -148,6 +152,7 @@ class ChunkStore:
         rows = torch.as_tensor(np.asarray(embeddings, dtype=np.float32))
         self._emb[idx] = rows.to(self.device, self.dtype)
         self._mask[idx] = True
+        self.mutations += 1
         return slots
 
     def remove_ids(self, chunk_ids: Sequence[str]) -> int:
@@ -161,6 +166,7 @@ class ChunkStore:
             self._meta[slot] = None
             self._free.append(slot)
         self._mask[torch.as_tensor(doomed, dtype=torch.long, device=self.device)] = False
+        self.mutations += 1
         return len(doomed)
 
     def compact(self) -> None:
@@ -182,6 +188,7 @@ class ChunkStore:
         self._emb = emb
         self._mask = torch.zeros_like(self._mask)
         self._mask[:n] = True
+        self.mutations += 1
 
     # ----- persistence helpers -------------------------------------------
 

@@ -51,8 +51,7 @@ from rust_local_rag_tpu_torch.engine import persistence
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta, ChunkStore
 from rust_local_rag_tpu_torch.ingest import chunk_text as chunk_text_fn
 from rust_local_rag_tpu_torch.ingest.pdf import extract_pdf_text
-from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService
-from rust_local_rag_tpu_torch.models.encoder import TransformerEncoderModel
+from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService, build_default_service
 from rust_local_rag_tpu_torch.models.reranker_service import (
     RerankedResult,
     RerankerCandidate,
@@ -117,6 +116,25 @@ class SearchResult:
     reranker_score: Optional[float] = None
     yes_logprob: Optional[float] = None
     no_logprob: Optional[float] = None
+
+    def to_dict(self) -> dict:
+        """The JSON object of one result: the seven fixed fields, then each
+        optional score that is set (rag_engine.rs serde order)."""
+        d = {
+            "text": self.text,
+            "score": self.score,
+            "document": self.document,
+            "chunk_id": self.chunk_id,
+            "chunk_index": self.chunk_index,
+            "page_number": self.page_number,
+            "section": self.section,
+        }
+        for k in ("embedding_score", "lexical_score", "initial_score", "reranker_score",
+                  "yes_logprob", "no_logprob"):
+            v = getattr(self, k)
+            if v is not None:
+                d[k] = v
+        return d
 
 
 @dataclass
@@ -243,19 +261,22 @@ class RagEngine:
         cls,
         data_dir: str,
         device: str | torch.device = "cuda",
-        model_name: str = "nomic-embed-text",
+        model_name: Optional[str] = None,
         reranker: Optional[RerankerService] = None,
     ) -> "RagEngine":
-        """Engine over the committed encoder and tokenizer, with `reranker`
+        """Engine over the configured encoder (build_default_service: the
+        committed encoder and tokenizer, or the hash encoder in hermetic
+        mode) named `model_name` or get_embedding_model(), with `reranker`
         or else the configured one (build_default_reranker: none unless
         RAG_TPU_RERANK_MODEL names one)."""
-        svc = EmbeddingService(
-            TransformerEncoderModel.from_assets(model_name=model_name, device=device)
-        )
+        svc = build_default_service(device, model_name)
         svc.verify()
         if reranker is None:
             reranker = build_default_reranker(device)
         return cls(data_dir, svc, reranker, device=device)
+
+    def needs_reindex(self) -> bool:
+        return self._needs_reindex
 
     def embedding_model(self) -> str:
         return self.embedding_service.model_name
@@ -265,6 +286,36 @@ class RagEngine:
 
     def get_reranker(self) -> Optional[RerankerService]:
         return self.reranker
+
+    def switch_embedding_model(self, new_service: EmbeddingService) -> None:
+        """Swap the embedding model in process without losing either model's
+        index (JAX rag_engine.py:449-483): save the current model's index,
+        rebuild the slab at the new encoder's dim, and load the new model's
+        index from disk (empty, with needs_reindex, when it has hashes but
+        no chunks)."""
+        if new_service.model_name == self.embedding_model():
+            return
+        if len(self.store):
+            self.save_to_disk()
+        self.embedding_service = new_service
+        self.store = ChunkStore(new_service.dim, self.store.dtype, device=self.device)
+        self.lexical_index.clear()
+        self.document_hashes = {}
+        self._needs_reindex = False
+        self.load_from_disk()
+        if len(self.store) == 0 and self.document_hashes:
+            self._needs_reindex = True
+        logger.info("Switched embedding model to '%s' (%d chunks resident)",
+                    new_service.model_name, len(self.store))
+
+    def finalize_reindex(self) -> None:
+        """End of a reindex job (rag_engine.rs:204-215): clear
+        needs_reindex and save."""
+        if self._needs_reindex:
+            self._needs_reindex = False
+            self.save_to_disk()
+            logger.info("Reindexing complete. Indexed %d chunks across %d documents.",
+                        len(self.store), len(self.list_documents()))
 
     # ----- ingest -----------------------------------------------------------
 
@@ -1064,6 +1115,35 @@ class RagEngine:
             res.yes_logprob = float(jc.yes[qi, rank])
             res.no_logprob = float(jc.no[qi, rank])
             out.append(res)
+        return out
+
+    def get_embedding_candidates(self, query: str, count: int) -> List[RerankerCandidate]:
+        """The `count` nearest chunks by dense score alone, as reranker
+        candidates (calibrate_reranker; rag_engine.rs:415-460): hybrid_topk
+        with no lexical hits at weights 1 / 0."""
+        if len(self.store) == 0:
+            return []
+        q = _normalize_vec(self.embedding_service.get_query_embeddings([query])[0])
+        k = min(count, len(self.store))
+        width = lex_width_for(0)
+        vals, _, _, idx = hybrid_topk(
+            torch.as_tensor(q[None, :], device=self.device),
+            self.store.corpus(),
+            self.store.valid_mask(),
+            torch.full((1, width), -1, dtype=torch.int32, device=self.device),
+            torch.zeros((1, width), dtype=torch.float32, device=self.device),
+            self._f32(1.0),
+            self._f32(0.0),
+            _bucket_k(k),
+        )
+        out = []
+        for v, slot in zip(vals[0, :k].tolist(), idx[0, :k].tolist()):
+            if slot < 0 or not np.isfinite(v):
+                continue
+            m = self.store.meta_for_slot(int(slot))
+            out.append(RerankerCandidate(chunk_id=m.id, document=m.document_name, text=m.text,
+                                         page_number=m.page_number, section=m.section,
+                                         initial_score=float(v)))
         return out
 
     def warmup(self) -> None:

@@ -8,8 +8,9 @@ Two toolchains, chosen by the library:
         nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
              -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-  * the host tier (csrc/<name>.cpp: the BM25 index and the WordPiece
-    tokenizer), wherever the port runs, the CPU tests included:
+  * the host tier (csrc/<name>.cpp: the BM25 index, the WordPiece
+    tokenizer and the JSON response serializer), wherever the port runs,
+    the CPU tests included:
 
         g++ -O3 -fPIC -std=c++17 -shared -o build/lib<name>-<hash>.so csrc/<name>.cpp
 
@@ -43,13 +44,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the flags of the JAX package's native/Makefile, without -lz (neither
-# host source needs zlib)
+# the flags of the JAX package's native/Makefile, without -lz (no host
+# source of the port needs zlib)
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 # libraries built from csrc/<name>.cpp with g++; every other one is
 # csrc/<name>.cu built with nvcc
-HOST_LIBRARIES = ("lexical", "wordpiece")
+HOST_LIBRARIES = ("lexical", "wordpiece", "serializer")
 
 # library name -> its ctypes signatures {function: (restype, argtypes)};
 # pointers are passed as Python ints (c_void_p), byte strings as c_char_p
@@ -82,6 +83,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "wp_create": (_P, [_S, _I64, _I32, _I32, _I32, _I32, _I32, _I32]),
         "wp_encode_batch": (None, [_P, _S, _P, _I32, _I32, _P, _P]),
         "wp_destroy": (None, [_P]),
+    },
+    "serializer": {
+        "resp_create": (_P, []),
+        "resp_destroy": (None, [_P]),
+        "resp_register": (None, [_P, _I64, _S, _I64]),
+        "resp_register_bulk": (None, [_P, _P, _S, _P, _I64]),
+        "resp_clear_slot": (None, [_P, _I64]),
+        "resp_count": (_I64, [_P]),
+        "resp_serialize": (_I64, [_P, _P, _P, _P, _P, _I64, ctypes.c_float, _P, _I64]),
+        "resp_serialize_batch": (_I64, [_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _P, _I64, _P]),
+        "resp_serialize_batch_rr": (
+            _I64, [_P, *[_P] * 8, _I64, _I64, ctypes.c_float, ctypes.c_float, _P, _I64, _P],
+        ),
     },
 }
 

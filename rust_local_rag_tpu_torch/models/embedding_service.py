@@ -8,13 +8,16 @@ search and ingest path use).
     the original order restored, a cooldown between batches, a per-batch
     progress callback and a per-batch timeout;
   * get_query_embeddings_device: query embeddings left on the device for
-    the search dispatch.
+    the search dispatch;
+  * build_default_service: the committed encoder, or the hash encoder when
+    RAG_TPU_FAKE_ENCODER is set (hermetic mode).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import logging
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -24,6 +27,7 @@ from rust_local_rag_tpu_torch.config import (
     get_batch_cooldown_ms,
     get_batch_size,
     get_batch_timeout_s,
+    get_embedding_model,
 )
 from rust_local_rag_tpu_torch.utils.lru import LruCache
 
@@ -147,3 +151,19 @@ class EmbeddingService:
             if bi + 1 < total_batches and cooldown > 0:
                 time.sleep(cooldown / 1000.0)
         return out
+
+
+def build_default_service(device="cuda", model_name: Optional[str] = None) -> EmbeddingService:
+    """The configured encoder under `model_name` (default
+    get_embedding_model()): the committed transformer on `device`, or the
+    hash encoder at RAG_TPU_FAKE_ENCODER_DIM (768) when RAG_TPU_FAKE_ENCODER
+    is set, as the JAX package's build_default_service."""
+    name = model_name or get_embedding_model()
+    if os.environ.get("RAG_TPU_FAKE_ENCODER"):
+        from rust_local_rag_tpu_torch.models.fake_encoder import HashEncoder
+
+        dim = int(os.environ.get("RAG_TPU_FAKE_ENCODER_DIM", "768"))
+        return EmbeddingService(HashEncoder(dim=dim, model_name=name))
+    from rust_local_rag_tpu_torch.models.encoder import TransformerEncoderModel
+
+    return EmbeddingService(TransformerEncoderModel.from_assets(model_name=name, device=device))

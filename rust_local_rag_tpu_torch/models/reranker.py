@@ -249,3 +249,42 @@ class TransformerReranker:
     def score_prompts(self, prompts: Sequence[str]) -> List[Tuple[float, float, float]]:
         """[(score, yes_logprob, no_logprob)], one forward for the batch."""
         return self.fetch_prompts(self.dispatch_prompts(prompts))
+
+
+class FakeReranker:
+    """Deterministic reranker for hermetic runs (the JAX package's
+    FakeReranker): relevance from hash-encoder cosine between the prompt's
+    "Query:" line and its chunk, expressed as yes/no logprobs so the whole
+    scoring formula and every blend path run. numpy only, so the two
+    packages give identical scores."""
+
+    def __init__(self, dim: int = 256, model_name: str = "fake-reranker"):
+        from rust_local_rag_tpu_torch.models.fake_encoder import HashEncoder
+
+        self._enc = HashEncoder(dim=dim, model_name="fake-rerank-encoder")
+        self._model_name = model_name
+
+    @property
+    def model_name(self) -> str:
+        return self._model_name
+
+    def dispatch_prompts(self, prompts: Sequence[str]):
+        """Scores are complete at dispatch; the handle is the result."""
+        return self.score_prompts(prompts)
+
+    def fetch_prompts(self, handle) -> List[Tuple[float, float, float]]:
+        return handle
+
+    def score_prompts(self, prompts: Sequence[str]) -> List[Tuple[float, float, float]]:
+        out: List[Tuple[float, float, float]] = []
+        for p in prompts:
+            lines = p.splitlines()
+            query = next((ln for ln in lines if ln.lower().startswith("query:")), p)
+            chunk_start = next((i for i, ln in enumerate(lines) if ln.lower().startswith("chunk")), 0)
+            chunk = "\n".join(lines[chunk_start:]) or p
+            sim = float(np.dot(self._enc.encode_one(query), self._enc.encode_one(chunk)))
+            s = min(max(0.5 + 0.5 * sim, 1e-6), 1.0 - 1e-6)
+            yes_lp = math.log(s)
+            no_lp = math.log(1.0 - s)
+            out.append((softmax_yes_no(yes_lp, no_lp), yes_lp, no_lp))
+        return out

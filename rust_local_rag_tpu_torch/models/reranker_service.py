@@ -27,7 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from rust_local_rag_tpu_torch.config import get_prompts_dir, get_rerank_model
-from rust_local_rag_tpu_torch.models.reranker import TransformerReranker
+from rust_local_rag_tpu_torch.models.reranker import FakeReranker, TransformerReranker
 
 logger = logging.getLogger(__name__)
 
@@ -198,13 +198,16 @@ class RerankerService:
 
 
 def build_default_reranker(device: str | torch.device = "cuda") -> Optional[RerankerService]:
-    """The configured reranker (the committed model, named by
-    get_rerank_model()), or None when none is configured. A model that
-    fails to load is logged and gives None: the reference treats reranker
-    start-up failure as non-fatal (rag_engine.rs:164-176)."""
+    """The configured reranker (named by get_rerank_model()): the committed
+    model, or the hash FakeReranker when RAG_TPU_FAKE_RERANKER is set
+    (hermetic mode); None when none is configured. A model that fails to
+    load is logged and gives None: the reference treats reranker start-up
+    failure as non-fatal (rag_engine.rs:164-176)."""
     name = get_rerank_model()
     if not name:
         return None
+    if os.environ.get("RAG_TPU_FAKE_RERANKER"):
+        return RerankerService(FakeReranker(model_name=name))
     try:
         return RerankerService(TransformerReranker.from_assets(model_name=name, device=device))
     except (OSError, ValueError, KeyError) as e:

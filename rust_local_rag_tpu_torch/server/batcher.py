@@ -18,8 +18,14 @@ Lanes, chosen per batch as in the JAX batcher:
 A lane that declines falls to the general lane after releasing the read
 lock: the lock prefers writers, so a nested read could wait forever
 behind a queued writer.
-Results resolve to SearchResult objects (the native response serializer
-belongs to the HTTP layer, not ported yet).
+
+Results resolve to SearchResult lists, or, for a request submitted with
+want_payload (the HTTP /search route), to response-body bytes from the
+native serializer (server/serializer.py) in the hot, MMR hot and judged
+lanes: serialize_batch / serialize_batch_rr write the whole batch in one
+call. The general lane answers objects either way. Event-loop callers pass
+an asyncio future and its loop; each batch then wakes each loop once
+(one call_soon_threadsafe a batch a loop, not one a request).
 """
 
 from __future__ import annotations
@@ -43,12 +49,27 @@ def _weights_key(w: Optional[QueryWeights]) -> Tuple:
     return (w.embedding, w.lexical, w.reranker, w.initial)
 
 
+def _deliver(pairs: List[Tuple[object, object]]) -> None:
+    """On the event loop: resolve a batch's asyncio futures."""
+    for fut, res in pairs:
+        if not fut.done():
+            fut.set_result(res)
+
+
+def _deliver_exc(pairs: List[Tuple[object, BaseException]]) -> None:
+    for fut, exc in pairs:
+        if not fut.done():
+            fut.set_exception(exc)
+
+
 @dataclass
 class _Item:
     key: Tuple
     query: str
     weights: Optional[QueryWeights]
-    future: Future
+    future: object  # concurrent Future, or an asyncio future of `loop`
+    loop: Optional[object]
+    want_payload: bool
     diversity: float
     use_reranker: bool
     rejection_threshold: Optional[float]
@@ -91,6 +112,10 @@ class SearchBatcher:
         # judged-lane batches that fell back to the general lane
         self.judged_fallbacks = 0
         self._fallback_lock = threading.Lock()
+        # one serializer for every pipeline thread (its registry is locked
+        # in C++); built on first use or by preregister_fragments
+        self._ser = None
+        self._ser_lock = threading.Lock()
         self._stopping = threading.Event()
         self._thread = threading.Thread(target=self._run, name="search-batcher", daemon=True)
         self._thread.start()
@@ -103,8 +128,7 @@ class SearchBatcher:
         self._pool.shutdown(wait=True)
         with self._buf_cv:
             leftovers, self._buf = self._buf, []
-        for it in leftovers:
-            it.future.set_exception(RuntimeError("server shutting down"))
+        self._complete_exc([(it, RuntimeError("server shutting down")) for it in leftovers])
 
     def submit(
         self,
@@ -119,8 +143,15 @@ class SearchBatcher:
         rejection_unseen_mass: Optional[float] = None,
         rejection_unseen_cos: Optional[float] = None,
         rejection_unseen_judge: Optional[float] = None,
-    ) -> Future:
-        """Enqueue one search; the Future resolves to a List[SearchResult]."""
+        want_payload: bool = False,
+        afuture: Optional[object] = None,
+        loop: Optional[object] = None,
+    ) -> object:
+        """Enqueue one search; it resolves to a List[SearchResult], or to
+        response-body bytes when want_payload and the batch takes the hot,
+        MMR hot or judged lane. Returns a new concurrent Future, or, for an
+        event-loop caller, `afuture` (an asyncio future of `loop`), which
+        the batcher resolves with one call_soon_threadsafe per batch."""
         diversity = round(float(diversity), 6)
         key = (
             top_k,
@@ -138,7 +169,9 @@ class SearchBatcher:
             key=key,
             query=query,
             weights=weights,
-            future=Future(),
+            future=afuture if afuture is not None else Future(),
+            loop=loop if afuture is not None else None,
+            want_payload=want_payload,
             diversity=diversity,
             use_reranker=bool(use_reranker),
             rejection_threshold=rejection_threshold,
@@ -209,8 +242,71 @@ class SearchBatcher:
                 with self._inflight_cv:
                     self._inflight += 1
                 self._pool.submit(self._run_one, batch)
-        for it in pending:
-            it.future.set_exception(RuntimeError("server shutting down"))
+        self._complete_exc([(it, RuntimeError("server shutting down")) for it in pending])
+
+    # ----- completion -----
+
+    @staticmethod
+    def _complete(done: List[Tuple[_Item, object]]) -> None:
+        """Resolve a batch: concurrent futures directly, asyncio futures
+        with one call_soon_threadsafe per loop."""
+        by_loop: dict = {}
+        for it, res in done:
+            if it.loop is None:
+                if not it.future.done():
+                    it.future.set_result(res)
+            else:
+                by_loop.setdefault(it.loop, []).append((it.future, res))
+        for loop, pairs in by_loop.items():
+            try:
+                loop.call_soon_threadsafe(_deliver, pairs)
+            except RuntimeError:
+                pass  # the loop is closed (shutdown): nobody waits
+
+    @staticmethod
+    def _complete_exc(failed: List[Tuple[_Item, BaseException]]) -> None:
+        by_loop: dict = {}
+        for it, exc in failed:
+            if it.loop is None:
+                if not it.future.done():
+                    it.future.set_exception(exc)
+            else:
+                by_loop.setdefault(it.loop, []).append((it.future, exc))
+        for loop, pairs in by_loop.items():
+            try:
+                loop.call_soon_threadsafe(_deliver_exc, pairs)
+            except RuntimeError:
+                pass
+
+    # ----- the native serializer -----
+
+    def _serializer(self):
+        """The batcher's ResponseSerializer, built on first use; raises when
+        its library does not build or load."""
+        if self._ser is None:
+            with self._ser_lock:
+                if self._ser is None:
+                    from rust_local_rag_tpu_torch.server.serializer import ResponseSerializer
+
+                    self._ser = ResponseSerializer(lambda: self.engine.store)
+        return self._ser
+
+    def preregister_fragments(self) -> int:
+        """Register every live chunk's response fragment (after the index is
+        loaded), so serving builds none. Returns the count."""
+        return self._serializer().preregister_all()
+
+    def _payloads(self, batch: List[_Item], serialize) -> Optional[list]:
+        """serialize() -> one body per query when a request asked for bytes."""
+        return serialize() if any(it.want_payload for it in batch) else None
+
+    def _answer(self, batch: List[_Item], payloads: Optional[list], result) -> None:
+        """Complete the batch: bytes where asked for and serialized, else
+        result(qi) objects."""
+        self._complete([
+            (it, payloads[qi] if it.want_payload and payloads is not None else result(qi))
+            for qi, it in enumerate(batch)
+        ])
 
     # ----- execution -----
 
@@ -218,9 +314,7 @@ class SearchBatcher:
         try:
             self._execute(batch)
         except Exception as e:  # noqa: BLE001 - delivered to every caller
-            for it in batch:
-                if not it.future.done():
-                    it.future.set_exception(e)
+            self._complete_exc([(it, e) for it in batch])
         finally:
             with self._inflight_cv:
                 self._inflight -= 1
@@ -258,6 +352,7 @@ class SearchBatcher:
 
     def _execute_hot(self, batch: List[_Item], top_k: int) -> None:
         it0 = batch[0]
+        nq = len(batch)
         with self.engine_lock.read():
             pending = self.engine.dispatch_search(
                 [it.query for it in batch],
@@ -269,18 +364,18 @@ class SearchBatcher:
                 rejection_unseen_cos=it0.rejection_unseen_cos,
             )
             if pending is None:  # empty store
-                results = [[] for _ in batch]
-            else:
-                col = self.engine.fetch_columnar(pending)
-                results = [self.engine.results_from_columnar(col, qi) for qi in range(len(batch))]
-        for it, res in zip(batch, results):
-            it.future.set_result(res)
+                self._complete([(it, []) for it in batch])
+                return
+            col = self.engine.fetch_columnar(pending)
+            payloads = self._payloads(batch, lambda: self._serializer().serialize_batch(
+                col.slots[:nq], col.vals[:nq], col.emb[:nq], col.lex[:nq], floor=col.floor))
+            self._answer(batch, payloads, lambda qi: self.engine.results_from_columnar(col, qi))
 
     def _execute_mmr_hot(self, batch: List[_Item], top_k: int) -> None:
         """One MMR dispatch and one packed fetch; the planes come back in
         MMR order, so the rest is the hot lane's."""
         it0 = batch[0]
-        results = None
+        nq = len(batch)
         with self.engine_lock.read():
             pending = self.engine.dispatch_search_mmr(
                 [it.query for it in batch],
@@ -294,12 +389,12 @@ class SearchBatcher:
             )
             if pending is not None:
                 col = self.engine.fetch_columnar(pending)
-                results = [self.engine.results_from_columnar(col, qi) for qi in range(len(batch))]
-        if results is None:  # the lane declined: after the read lock is released
-            self._execute_general(batch, top_k)
-            return
-        for it, res in zip(batch, results):
-            it.future.set_result(res)
+                payloads = self._payloads(batch, lambda: self._serializer().serialize_batch(
+                    col.slots[:nq], col.vals[:nq], col.emb[:nq], col.lex[:nq], floor=col.floor))
+                self._answer(batch, payloads, lambda qi: self.engine.results_from_columnar(col, qi))
+                return
+        # the lane declined: after the read lock is released
+        self._execute_general(batch, top_k)
 
     def _execute_judged(self, batch: List[_Item], top_k: int) -> None:
         """First-stage dispatch -> columnar fetch -> one batched judge
@@ -308,7 +403,7 @@ class SearchBatcher:
         semantics (rag_engine.rs:586-597), and is counted."""
         queries = [it.query for it in batch]
         it0 = batch[0]
-        results = None
+        nq = len(batch)
         with self.engine_lock.read():
             try:
                 pending = self.engine.dispatch_search(
@@ -336,14 +431,16 @@ class SearchBatcher:
                     self.judged_fallbacks += 1
                 jc = None
             if jc is not None:
-                results = [self.engine.results_from_judged(jc, qi) for qi in range(len(batch))]
-        if results is None:  # empty store, or the judged lane failed
-            # after the read lock is released: the lock is write-preferring,
-            # so a nested read could wait forever behind a queued writer
-            self._execute_general(batch, top_k)
-            return
-        for it, res in zip(batch, results):
-            it.future.set_result(res)
+                col = jc.col
+                payloads = self._payloads(batch, lambda: self._serializer().serialize_batch_rr(
+                    col.slots[:nq], jc.score[:nq], col.emb[:nq], col.lex[:nq], col.vals[:nq],
+                    jc.rr[:nq], jc.yes[:nq], jc.no[:nq], emb_floor=jc.cos_floor, rr_floor=jc.thr))
+                self._answer(batch, payloads, lambda qi: self.engine.results_from_judged(jc, qi))
+                return
+        # empty store, or the judged lane failed: after the read lock is
+        # released (the lock prefers writers, so a nested read could wait
+        # forever behind a queued writer)
+        self._execute_general(batch, top_k)
 
     def _execute_general(self, batch: List[_Item], top_k: int) -> None:
         it0 = batch[0]
@@ -361,5 +458,5 @@ class SearchBatcher:
                 rejection_unseen_cos=it0.rejection_unseen_cos,
                 rejection_unseen_judge=it0.rejection_unseen_judge,
             )
-        for it, res in zip(batch, results):
-            it.future.set_result(res)
+        # objects even under want_payload; the HTTP layer dumps them
+        self._complete(list(zip(batch, results)))

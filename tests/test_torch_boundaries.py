@@ -3,6 +3,8 @@ points refuse to run when there is no card instead of using the CPU."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import jax  # noqa: F401
 import pytest
@@ -17,10 +19,13 @@ from rust_local_rag_tpu_torch.kernels import build
 from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService
 from rust_local_rag_tpu_torch.models.encoder import Encoder, EncoderConfig, TransformerEncoderModel
 from rust_local_rag_tpu_torch.models.tokenizer import HashTokenizer
+from rust_local_rag_tpu_torch.server.app import build_runtime
 
 PKG = os.path.dirname(rust_local_rag_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG)
-FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "safetensors", "tokenizers", "aiohttp")
+# the card's machine has none of the last five; the eval harness's client
+# and runner import requests and yaml
+FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "safetensors", "tokenizers", "aiohttp", "requests", "yaml")
 
 
 def _port_files():
@@ -77,7 +82,7 @@ class _Fake:
         raise AssertionError("not reached")
 
 
-def test_entry_points_default_to_cuda_and_refuse(no_card, tmp_path):
+def test_entry_points_default_to_cuda_and_refuse(no_card, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError):
         ChunkStore(8)
     with pytest.raises(RuntimeError):
@@ -87,14 +92,30 @@ def test_entry_points_default_to_cuda_and_refuse(no_card, tmp_path):
                                 HashTokenizer(16))
     with pytest.raises(RuntimeError):
         RagEngine.create(str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_runtime(str(tmp_path / "data"), str(tmp_path / "documents"))
+    for k in ("DATA_DIR", "DOCUMENTS_DIR", "LOG_DIR"):
+        monkeypatch.setenv(k, str(tmp_path / k.lower()))
+    monkeypatch.delenv("RAG_TPU_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_runtime()  # DATA_DIR / DOCUMENTS_DIR from the environment
     assert not os.listdir(tmp_path)
+    # the server's entry point: without RAG_TPU_PLATFORM=cpu it asks for
+    # the card, and with none visible it exits 1 before building or binding
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", MCP_HTTP_BIND="127.0.0.1:0",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "rust_local_rag_tpu_torch"], env=env, cwd=str(tmp_path),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1, proc.stderr[-2000:]
+    assert "Startup failed" in proc.stderr and "cuda" in proc.stderr
+    assert sorted(os.listdir(tmp_path)) == ["log_dir"]  # the log file only
 
 
 def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
     a = build.library_path("score_segmax")
     assert a == build.library_path("score_segmax")
     assert os.path.dirname(a) == build.BUILD_DIR and "sm_90a" in " ".join(build.NVCC_FLAGS)
-    assert set(build.SIGNATURES) == {"score_segmax", "attention", "lexical", "wordpiece"}
+    assert set(build.SIGNATURES) == {"score_segmax", "attention", "lexical", "wordpiece", "serializer"}
     assert build.library_path("attention") != a
     # the host sources and the g++ flags are part of every library's hash
     csrc = tmp_path / "csrc"

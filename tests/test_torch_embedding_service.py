@@ -119,3 +119,58 @@ def test_every_miss_is_embedded_in_one_model_call_like_jax():
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
     assert TService(CountingEncoder()).get_query_embeddings([]).shape == (0, DIM)
+
+
+# ---- the hermetic models (RAG_TPU_FAKE_ENCODER, RAG_TPU_FAKE_RERANKER) ----
+
+HERMETIC_TEXTS = ["Replace the pump seal.", "", "ünïcode Ünïcode 123 mixed-CASE words",
+                  "a b c d e f g h " * 40, "Query: pump seal\nChunk:\nReplace the seal."]
+
+
+@pytest.mark.parametrize("dim", [16, 128, 768])
+def test_port_hash_encoder_is_bit_identical_to_jax(dim):
+    from rust_local_rag_tpu_torch.models.fake_encoder import HashEncoder as THash
+
+    a, b = THash(dim=dim).encode(HERMETIC_TEXTS), HashEncoder(dim=dim).encode(HERMETIC_TEXTS)
+    assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
+    assert THash(dim=dim).encode([]).shape == (0, dim)
+
+
+def test_port_fake_reranker_is_bit_identical_to_jax():
+    from rust_local_rag_tpu.models.reranker import FakeReranker as JFake
+    from rust_local_rag_tpu.models.reranker_service import RerankerCandidate as JCand
+    from rust_local_rag_tpu.models.reranker_service import RerankerService as JSvc
+    from rust_local_rag_tpu_torch.models.reranker import FakeReranker as TFake
+    from rust_local_rag_tpu_torch.models.reranker_service import RerankerCandidate as TCand
+    from rust_local_rag_tpu_torch.models.reranker_service import RerankerService as TSvc
+
+    t, j = TSvc(TFake(model_name="rr")), JSvc(JFake(model_name="rr"))
+    for q in ("pump seal", "zebra quasar"):
+        tc = [TCand(f"c{i}", "m.pdf", x, i, None, 0.5) for i, x in enumerate(HERMETIC_TEXTS)]
+        jc = [JCand(f"c{i}", "m.pdf", x, i, None, 0.5) for i, x in enumerate(HERMETIC_TEXTS)]
+        got = t.score_prompts([t.build_prompt(q, c) for c in tc])
+        assert got == j.score_prompts([j.build_prompt(q, c) for c in jc])
+        assert t.fetch_prompts(t.dispatch_prompts([t.build_prompt(q, tc[0])])) == got[:1]
+    assert t.model_name == "rr"
+
+
+def test_hermetic_default_services_like_jax(monkeypatch):
+    from rust_local_rag_tpu.models.embedding_service import build_default_service as j_build
+    from rust_local_rag_tpu.models.reranker_service import build_default_reranker as j_rr
+    from rust_local_rag_tpu_torch.models.embedding_service import build_default_service
+    from rust_local_rag_tpu_torch.models.reranker import FakeReranker as TFake
+    from rust_local_rag_tpu_torch.models.reranker_service import build_default_reranker
+
+    monkeypatch.setenv("RAG_TPU_FAKE_ENCODER", "1")
+    monkeypatch.setenv("RAG_TPU_FAKE_ENCODER_DIM", "48")
+    monkeypatch.setenv("RAG_TPU_EMBEDDING_MODEL", "hermetic-model")
+    t, j = build_default_service(device="cpu"), j_build()
+    assert (t.model_name, t.dim) == (j.model_name, j.dim) == ("hermetic-model", 48)
+    assert np.array_equal(t.get_query_embeddings(HERMETIC_TEXTS), j.get_query_embeddings(HERMETIC_TEXTS))
+    monkeypatch.delenv("RAG_TPU_RERANK_MODEL", raising=False)
+    monkeypatch.delenv("OLLAMA_RERANK_MODEL", raising=False)
+    assert build_default_reranker("cpu") is None and j_rr() is None
+    monkeypatch.setenv("RAG_TPU_RERANK_MODEL", "fake-rr")
+    monkeypatch.setenv("RAG_TPU_FAKE_RERANKER", "1")
+    svc = build_default_reranker("cuda")  # the hash judge needs no device
+    assert isinstance(svc._model, TFake) and svc.model_name == j_rr().model_name == "fake-rr"

@@ -3,10 +3,11 @@ judge-gated lane (reranker weight 0, the shipped quality configuration)
 and the object lane (search_batch at the reference's 0.7 / 0.3 blend),
 with every rejection gate.
 
-Both engines ingest the same PDFs with the same hash encoder and hold the
-JAX package's FakeReranker inside their own RerankerService, so the judge
-sees identical prompts and gives identical yes/no logprobs; what is
-compared is the engines' lanes around it. Slab capacity 65,536 sends both
+Both engines ingest the same PDFs with their own package's hash encoder
+and hold their own package's FakeReranker inside their RerankerService
+(numpy models, bit-identical across the packages), so the judge sees
+identical prompts and gives identical yes/no logprobs; what is compared
+is the engines' lanes around it. Slab capacity 65,536 sends both
 first stages through their score + segment-max branch (Pallas in
 interpret mode, the port's plain twin on the CPU).
 
@@ -34,6 +35,8 @@ from rust_local_rag_tpu_torch.config import QueryWeights as TWeights
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkStore as TStore
 from rust_local_rag_tpu_torch.engine.rag_engine import RagEngine as TEngine
 from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService as TService
+from rust_local_rag_tpu_torch.models.fake_encoder import HashEncoder as THashEncoder
+from rust_local_rag_tpu_torch.models.reranker import FakeReranker as TFakeReranker
 from rust_local_rag_tpu_torch.models.reranker_service import RerankerService as TRerankerService
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher as TBatcher
 from rust_local_rag_tpu_torch.utils.rwlock import RwLock as TLock
@@ -97,8 +100,8 @@ def engines(tmp_path_factory):
         root = tmp_path_factory.mktemp("judged")
         j = JEngine(str(root / "jax"), JService(HashEncoder(dim=DIM)), reranker=JRerankerService(FakeReranker()))
         t = TEngine(
-            str(root / "port"), TService(HashEncoder(dim=DIM)),
-            reranker=TRerankerService(FakeReranker()), device="cpu",
+            str(root / "port"), TService(THashEncoder(dim=DIM)),
+            reranker=TRerankerService(TFakeReranker()), device="cpu",
         )
         j.store = JStore(dim=DIM, initial_capacity=CAPACITY)
         t.store = TStore(DIM, initial_capacity=CAPACITY, device="cpu")
@@ -210,7 +213,7 @@ def test_top_k_beyond_pool_and_empty(engines, tmp_path):
     j, t = engines
     n = len(t.store)
     _same(_rows(t.search("pump", n + 5)), _rows(j.search("pump", n + 5)), "k > n")
-    empty = TEngine(str(tmp_path), TService(HashEncoder(dim=DIM)), reranker=t.reranker, device="cpu")
+    empty = TEngine(str(tmp_path), TService(THashEncoder(dim=DIM)), reranker=t.reranker, device="cpu")
     assert empty.search_batch(["x", "y"], 3) == [[], []]
 
 
@@ -261,7 +264,12 @@ def test_batcher_routes_lanes_like_jax(engines):
     assert tb.judged_fallbacks == 0 and t.rerank_fallbacks == 0
 
 
-class _BrokenJudge(FakeReranker):
+class _BrokenJudge(TFakeReranker):
+    def score_prompts(self, prompts):
+        raise RuntimeError("judge forward failed")
+
+
+class _JBrokenJudge(FakeReranker):
     def score_prompts(self, prompts):
         raise RuntimeError("judge forward failed")
 
@@ -271,11 +279,11 @@ def test_judge_failures_fall_back_and_count(tmp_path, engines):
     (batcher.judged_fallbacks), which falls back to initial scores
     (engine.rerank_fallbacks) — the JAX package's semantics."""
     j, t = engines
-    broken = TEngine(str(tmp_path), TService(HashEncoder(dim=DIM)),
+    broken = TEngine(str(tmp_path), TService(THashEncoder(dim=DIM)),
                      reranker=TRerankerService(_BrokenJudge()), device="cpu")
     broken.store, broken.lexical_index = t.store, t.lexical_index
     jbroken = JEngine(str(tmp_path / "j"), JService(HashEncoder(dim=DIM)),
-                      reranker=JRerankerService(_BrokenJudge()))
+                      reranker=JRerankerService(_JBrokenJudge()))
     jbroken.store, jbroken.lexical_index = j.store, j.lexical_index
     tb = TBatcher(broken, TLock(), window_ms=5)
     jb = JBatcher(jbroken, JLock(), window_ms=5)

@@ -197,7 +197,7 @@ def _candidates(mod):
 def test_build_prompt_matches_jax(prompts_dir, tmp_path, monkeypatch):
     monkeypatch.setenv("PROMPTS_DIR", os.path.join(REPO, "prompts") if prompts_dir == "repo" else str(tmp_path))
     j = jsvc.RerankerService(jrr.FakeReranker())
-    t = tsvc.RerankerService(jrr.FakeReranker())
+    t = tsvc.RerankerService(trr.FakeReranker())
     if prompts_dir == "empty":
         assert tsvc.load_prompt_template() == jsvc.DEFAULT_PROMPT_TEMPLATE == tsvc.DEFAULT_PROMPT_TEMPLATE
     for tc, jc in zip(_candidates(tsvc), _candidates(jsvc)):
@@ -207,7 +207,7 @@ def test_build_prompt_matches_jax(prompts_dir, tmp_path, monkeypatch):
 
 
 def test_rerank_sorts_and_falls_back_with_count():
-    t = tsvc.RerankerService(jrr.FakeReranker())
+    t = tsvc.RerankerService(trr.FakeReranker())
     j = jsvc.RerankerService(jrr.FakeReranker())
     got = t.rerank("replace seal", _candidates(tsvc))
     want = j.rerank("replace seal", _candidates(jsvc))
@@ -232,7 +232,7 @@ def test_rerank_sorts_and_falls_back_with_count():
 
 
 def test_calibrate_timeout_nearest_rank():
-    t = tsvc.RerankerService(jrr.FakeReranker())
+    t = tsvc.RerankerService(trr.FakeReranker())
     cands = _candidates(tsvc) * 4
     stats = t.calibrate_timeout("q", cands, 10)
     assert stats.sample_size == 10
