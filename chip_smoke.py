@@ -29,7 +29,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    WordPiece tokenizer and the native BM25 index, checked), add_document
    for PDFs written here, then seeded chunks through embed_in_batches and
    the store + lexical index until more than 32,768 chunks are live (slab
-   capacity 65,536, the kernel's branch of hybrid_topk); engine.warmup();
+   capacity 65,536, the kernel's branch of hybrid_topk), timing the parts
+   of one save of that index as it was written before ROADMAP C8's repair
+   (np.savez_compressed into memory, then the file) and after it (np.savez
+   straight into the file); engine.warmup();
    lexical_check (its queries, and those of every phase added with it,
    from a stream of their own, so earlier phases keep theirs): a
    pure-Python BM25 index over the same chunks and slots against the
@@ -69,8 +72,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    then HttpServer.run, the serve loop of main, on a thread; seconds
    until /readyz answers 200); entry_point (`python -m
    rust_local_rag_tpu_torch` on its own copy: ready, one hot-lane answer
-   equal to the in-process server's, exit 0 on SIGTERM after the
-   graceful flush); reindex (the three PDFs and two new ones: POST
+   equal to the in-process server's; then its saved index is cut back to
+   32,000 chunks on disk, so the 33,033 it serves are a state no save
+   covers, and SIGTERM must log a completed flush save within the 5 s
+   budget, exit 0 and leave every served chunk on disk: ROADMAP C8);
+   reindex (the three PDFs and two new ones: POST
    /reindex until the job completes, /jobs/active null, a second reindex
    hash-skips all five with the chunk count unchanged, an MCP session's
    GET /mcp stream receives both completions, progress_tracking.log has
@@ -102,7 +108,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    decide as the HTTP answers did, and on a CPU copy under the
    rerank_check rules);
 7. segmented_topk: the unmasked kernel's own path (bench.py's exact
-   top-k), checked against torch.topk over the full scores;
+   top-k), checked against torch.topk over the full scores; then the
+   exact top-k experiments (scripts/exp_*.py, ported in
+   rust_local_rag_tpu_torch/experiments/) at their shape, N 1,245,184,
+   D 768, Q 128, bf16: experiments_check holds the segment-max kernel
+   (exact), the streaming score + segment-max kernel in every layout,
+   seg and operand order (scores within 1e-4 of the largest plain score,
+   maxima exactly those of its own scores), the resident-block dot probe
+   (within 1e-4, every chunk identical) and the read probe (exact) against
+   their plain versions, and the split pipeline against torch.topk over
+   the same scores; experiments runs every sweep of every module's main
+   with the launch counts set to 0 just before and read just after;
+   experiments_times times each new kernel, its plain version and a
+   library call beside its bound;
 8. times (CUDA events around a back-to-back run of calls, after a
    warm-up, median of repeats, per call): each kernel, its plain version
    and a library call against the bound (score + segment-max at Q 1, 2,
@@ -145,6 +163,15 @@ import numpy as np
 import torch
 
 import rust_local_rag_tpu_torch.models.encoder as encoder_module
+from rust_local_rag_tpu_torch.experiments import (
+    common as exp_common,
+    dma_probe,
+    isolate2,
+    isolate_kernel,
+    split2,
+    split_pipeline,
+    stream_kernel,
+)
 from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights, get_embedding_model
 from rust_local_rag_tpu_torch.engine import persistence
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta
@@ -176,6 +203,15 @@ from rust_local_rag_tpu_torch.ops.score_segmax import (
     score_segmax_plain,
     segmented_topk,
 )
+from rust_local_rag_tpu_torch.ops.segmax import segmax, segmax_plain
+from rust_local_rag_tpu_torch.ops.stream_probe import (
+    read_probe,
+    read_probe_plain,
+    resident_dot_plain,
+    resident_dot_segmax,
+    stream_segmax,
+    stream_segmax_plain,
+)
 from rust_local_rag_tpu_torch.server.app import build_runtime, prepare
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher
 from rust_local_rag_tpu_torch.server.fastpath import HttpServer
@@ -206,6 +242,18 @@ KERNEL_REPLACES = "rust_local_rag_tpu/ops/pallas_topk.py:245"
 UNMASKED_REPLACES = "rust_local_rag_tpu/ops/pallas_topk.py:117"
 ATTN_SOURCE = "rust_local_rag_tpu_torch/csrc/attention.cu"
 ATTN_REPLACES = "rust_local_rag_tpu/ops/attention.py:105"
+# the exact top-k experiments (scripts/exp_*.py) at their shape: N_BENCH
+# rows, D 768, Q 128, bf16 slab and queries, f32 scores
+SEGMAX_SOURCE = "rust_local_rag_tpu_torch/csrc/segmax.cu"
+STREAM_SOURCE = "rust_local_rag_tpu_torch/csrc/stream_probe.cu"
+SEGMAX_REPLACES = "scripts/exp_split_pipeline.py:30"
+STREAM_REPLACES = "scripts/exp_stream_kernel.py:27"
+PROBE_REPLACES = "scripts/exp_dma_probe.py:19"
+RESIDENT_REPLACES = "scripts/exp_isolate_kernel.py:34"
+EXPERIMENTS = (split_pipeline, split2, stream_kernel, isolate_kernel, isolate2, dma_probe)
+# the product kernels against f32 GEMMs of the same exact bf16 products:
+# max |kernel - plain| over the largest |plain| score
+EXP_REL_TOL = 1e-4
 BURSTS = (1, 16, 64)
 TOP_K = 10
 # the MMR lane: BASELINE.json config 2's diversity, and its top_k 100 for
@@ -1488,6 +1536,7 @@ HTTP_LANES = {
 # of its f32), and batches of other shapes sum f32 dots of unit vectors in
 # other orders (~1e-7): an HTTP answer and the in-process one agree within
 SERVER_TOL = 1e-6
+DISK_BEHIND = 32000  # chunks left on disk under the running server (C8)
 HTTP_BURSTS = (1, 16, 64)
 SERIALIZER_SOURCE = "rust_local_rag_tpu_torch/csrc/serializer.cpp"
 GATE_QUERIES = "eval_harness/ground_truth/queries.jsonl"
@@ -1748,8 +1797,12 @@ def timed_ms(fn, reps: int = 20) -> float:
 
 def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chunks: int) -> dict:
     """`python -m rust_local_rag_tpu_torch` on its own copy of the index:
-    ready, one hot-lane answer equal to the in-process server's, exit 0 on
-    SIGTERM after the graceful flush."""
+    ready, one hot-lane answer equal to the in-process server's, then
+    (ROADMAP C8) the saved index on disk is cut back to its first
+    DISK_BEHIND chunks while the server runs, so the server's whole index
+    is a state no save covers; SIGTERM must run the graceful flush, whose
+    save must complete within its 5 s budget, and exit 0, and the index on
+    disk must then hold every chunk the server held."""
     port = free_port()
     logs = os.path.join(tmp, "entry_logs")
     env = dict(os.environ, DATA_DIR=data_dir, DOCUMENTS_DIR=os.path.join(tmp, "entry_docs"), LOG_DIR=logs,
@@ -1770,6 +1823,10 @@ def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chun
             key = lambda r: (r["chunk_id"], r["score"], r["embedding_score"], r["lexical_score"])  # noqa: E731
             same_topk([key(r) for r in a[2]["results"]], [key(r) for r in b[2]["results"]], SERVER_TOL,
                       "entry point vs in-process server")
+            full = persistence.load_index(data_dir, get_embedding_model()).state
+            behind = persistence.IndexState(model=full.model, embeddings=full.embeddings[:DISK_BEHIND],
+                                            metas=full.metas[:DISK_BEHIND], document_hashes=full.document_hashes)
+            persistence.save_index(data_dir, behind)
             t_stop = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             code = proc.wait(timeout=120)
@@ -1787,18 +1844,17 @@ def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chun
     with open(os.path.join(logs, "rust-local-rag-tpu.log")) as f:
         messages = [json.loads(line)["message"] for line in f]
     # graceful_flush: the write lock, then a save with the reference's 5 s
-    # budget (main.rs:217-241); a save past it leaves the index on disk as
-    # it was (written to a temporary name and renamed)
+    # budget (main.rs:217-241), which must now complete
     flush = [m for m in messages if m.startswith(("RAG state successfully saved", "Save operation timed out"))]
-    if ("Lock acquired. Flushing state to disk (5s timeout)..." not in messages or len(flush) != 1
-            or messages[-1] != "MCP server shut down gracefully"):
-        raise AssertionError(f"entry point: no graceful flush in its log ({messages[-3:]})")
+    if ("Lock acquired. Flushing state to disk (5s timeout)..." not in messages
+            or flush != ["RAG state successfully saved to disk"] or messages[-1] != "MCP server shut down gracefully"):
+        raise AssertionError(f"entry point: no completed graceful flush in its log ({messages[-3:]})")
     state = persistence.load_index(data_dir, get_embedding_model()).state
-    if state is None or len(state.metas) != n_chunks:
-        raise AssertionError("entry point: the index on disk does not load after the shutdown")
+    if state is None or len(state.metas) != n_chunks or {m.id for m in state.metas} != {m.id for m in full.metas}:
+        raise AssertionError("entry point: the index on disk after the shutdown is not the server's")
     return {"entry_ready_s": ready_s, "entry_total_s": time.perf_counter() - t0, "entry_sigterm_to_exit_s": stop_s,
             "entry_exit_code": code, "entry_same_answer": a[2] == b[2], "entry_flush": flush[0],
-            "entry_index_loads_after_exit": len(state.metas)}
+            "entry_disk_behind_chunks": DISK_BEHIND, "entry_index_loads_after_exit": len(state.metas)}
 
 
 def run_server(engine, card: str, seconds: dict, tmp: str, pdfs: dict, rng, probs) -> dict:
@@ -2198,6 +2254,165 @@ def gate_check(card: str, tmp: str) -> dict:
 # ----------------------------------------------------------------- main ----
 
 
+# ------------------------------------------------------- experiments ----
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def experiments_check(seed: int, dev, card: str) -> dict:
+    """K1-K4 (csrc/segmax.cu, csrc/stream_probe.cu) against their plain
+    versions at the experiments' shape, N 1,245,184, D 768, Q 128 bf16, and
+    the split pipeline against torch.topk over the same scores.
+    -> {kernel: max_abs_err}."""
+    n, d, q = N_BENCH, exp_common.D, exp_common.Q
+    corpus = exp_common.normal_bf16((n, d), seed + 20, dev)
+    qs = exp_common.normal_bf16((q, d), seed + 21, dev)
+    st = exp_common.gemm_scores(qs, corpus)
+    errs = {"segmax": 0.0, "stream_segmax": 0.0, "read_probe": 0.0, "resident_dot_segmax": 0.0}
+    # K1: max is exact in any order
+    for seg, blkc, slots in ((128, 32768, 2), (64, 16384, 4), (128, 65536, 1)):
+        got, want = segmax(st, seg, blkc, slots), segmax_plain(st, seg)
+        if not torch.equal(got, want):
+            raise AssertionError(f"segmax seg={seg} blkc={blkc}: differs from the plain amax")
+        log({"kernel_check": "segmax", "seg": seg, "blkc": blkc, "slots": slots, "Q": q, "N": n, "exact": True,
+             "card": card})
+    # K2: scores within EXP_REL_TOL of the plain f32 product; the segment
+    # maxima exactly the max of the kernel's own scores
+    p_scores, p_sm = stream_segmax_plain(qs, corpus, 128, "qn")
+    p_sm64 = p_scores.view(q, n // 64, 64).amax(dim=2).T
+    ref = {}
+    for layout, natural, seg, slots in (("qn", False, 128, 2), ("nq", True, 128, 2), ("nq", True, 64, 2),
+                                        ("qn", True, 64, 4), ("none", False, 128, 2), ("none", False, 128, 4),
+                                        ("none", True, 128, 2)):
+        s, m = stream_segmax(qs, corpus, seg, layout, natural, slots)
+        want_sm = p_sm if seg == 128 else p_sm64
+        row = {"kernel_check": "stream_segmax", "layout": layout, "natural": natural, "seg": seg, "slots": slots,
+               "Q": q, "N": n, "D": d, "segmax_rel_err": rel_err(m, want_sm), "tol": EXP_REL_TOL, "card": card}
+        if s is not None:
+            s_qn = s if layout == "qn" else s.T.contiguous()
+            row["scores_rel_err"] = rel_err(s_qn, p_scores)
+            row["max_abs_err"] = float((s_qn - p_scores).abs().max())
+            errs["stream_segmax"] = max(errs["stream_segmax"], row["max_abs_err"])
+            if not torch.equal(m, s_qn.view(q, n // seg, seg).amax(dim=2).T):
+                raise AssertionError(f"stream_segmax {layout}: maxima are not those of its own scores")
+            ref[(natural, seg)] = m
+            del s_qn
+        elif (natural, seg) in ref and not torch.equal(m, ref[(natural, seg)]):
+            raise AssertionError(f"stream_segmax none natural={natural}: maxima differ from the scored run's")
+        log(row)
+        if max(row["segmax_rel_err"], row.get("scores_rel_err", 0.0)) > EXP_REL_TOL:
+            raise AssertionError(f"stream_segmax {row}: beyond tolerance")
+        del s, m
+    del p_scores, p_sm64, ref
+    # K4: block 0's maxima for every chunk, identical down the output
+    for blk, natural in ((2048, False), (4096, False), (4096, True)):
+        got = resident_dot_segmax(qs, corpus, blk, natural)
+        want = resident_dot_plain(qs, corpus, blk)
+        per = blk // 128
+        same = torch.equal(got, got[:per].repeat(n // blk, 1))
+        err = rel_err(got, want)
+        errs["resident_dot_segmax"] = max(errs["resident_dot_segmax"], float((got - want).abs().max()))
+        log({"kernel_check": "resident_dot_segmax", "blk": blk, "natural": natural, "rel_err": err,
+             "chunks_identical": same, "tol": EXP_REL_TOL, "card": card})
+        if not same or err > EXP_REL_TOL:
+            raise AssertionError(f"resident_dot_segmax blk={blk} natural={natural}: {err}, identical {same}")
+    # K3: a copy and integer sums, exact
+    for blk, slots, static in ((2048, 2, False), (8192, 2, True), (2048, 16, True), (16384, 4, True)):
+        heads, sums = read_probe(corpus, blk, 128, slots, static)
+        wh, ws = read_probe_plain(corpus, blk, 128)
+        if not (torch.equal(heads, wh) and torch.equal(sums, ws)):
+            raise AssertionError(f"read_probe blk={blk} slots={slots} static={static}: differs from the plain read")
+        log({"kernel_check": "read_probe", "blk": blk, "slots": slots, "static": static, "exact": True, "card": card})
+    # the split pipeline: exact top-100 of the same scores
+    wv, wi = torch.topk(st, exp_common.K, dim=1)
+    gv, gi = split_pipeline.pipeline_qn(128, 32768, 128)(qs, corpus)
+    okv, oki, ties = exp_common.same_topk(gv, gi, wv, wi)
+    log({"kernel_check": "split_pipeline", "values_exact": okv, "indices_exact": oki, "boundary_ties": ties,
+         "card": card})
+    if not (okv and oki):
+        raise AssertionError("split pipeline: not the exact top-100 of its scores")
+    del corpus, qs, st, wv, wi, gv, gi
+    torch.cuda.empty_cache()
+    return errs
+
+
+EXP_COUNTERS = {"segmax": segmax, "stream_segmax": stream_segmax, "read_probe": read_probe,
+                "resident_dot_segmax": resident_dot_segmax, "fused_score_segmax": fused_score_segmax}
+
+
+def run_experiments(dev) -> dict:
+    """Every sweep of every experiment module's main, with the launch counts
+    set to 0 just before and read just after. -> {kernel: launches}."""
+    for fn in EXP_COUNTERS.values():
+        fn.launches = 0
+    for mod in EXPERIMENTS:
+        log(f"-- python -m {mod.__name__}")
+        mod.main(device=dev)
+    launches = {name: fn.launches for name, fn in EXP_COUNTERS.items()}
+    log({"launches": launches, "path": "experiments"})
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the experiments launched a kernel no time: {launches}")
+    return launches
+
+
+def exp_bound(nbytes: float, ops: float = 0.0):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def experiments_times(seed: int, dev, card: str) -> dict:
+    """Each new kernel at the experiments' main setting beside its plain
+    version, a library call where one computes the same function, and its
+    bound; and the fused row (split2.stream_fused: the unmasked kernel at
+    Q 128 on the bf16 slab). -> {name: row}."""
+    n, d, q = N_BENCH, exp_common.D, exp_common.Q
+    corpus = exp_common.normal_bf16((n, d), seed + 20, dev)
+    qs = exp_common.normal_bf16((q, d), seed + 21, dev)
+    st = exp_common.gemm_scores(qs, corpus)
+    slab = n * d * 2
+    rows = {}
+
+    def row(name, setting, kernel, plain, library, bound):
+        b_ms, b_by = bound
+        r = {"kernel_time": name, "setting": setting, "Q": q, "N": n, "D": d, "ms": cuda_ms(kernel, reps=5, calls=5),
+             "plain_ms": cuda_ms(plain, reps=3, calls=2),
+             "library_ms": None if library is None else cuda_ms(library, reps=5, calls=5),
+             "bound_ms": b_ms, "bound_by": b_by, "card": card}
+        log(r)
+        rows[name] = r
+
+    row("segmax", "seg 128, blkc 32768, slots 2", lambda: segmax(st, 128, 32768, 2), lambda: segmax_plain(st, 128),
+        lambda: st.view(q, n // 128, 128).amax(dim=2), exp_bound(q * n * 4 + q * (n // 128) * 4))
+    del st
+    torch.cuda.empty_cache()
+    row("stream_segmax", "[Q, N] scores, seg 128, slots 2", lambda: stream_segmax(qs, corpus, 128, "qn"),
+        lambda: stream_segmax_plain(qs, corpus, 128, "qn"),
+        lambda: exp_common.gemm_scores(qs, corpus).view(q, n // 128, 128).amax(dim=2),
+        exp_bound(slab + q * d * 2 + q * n * 4 + (n // 128) * q * 4, 2 * q * n * d))
+    row("stream_segmax_none", "no scores (isolate both), seg 128, slots 2",
+        lambda: stream_segmax(qs, corpus, 128, "none"), lambda: stream_segmax_plain(qs, corpus, 128, "none"), None,
+        exp_bound(slab + q * d * 2 + (n // 128) * q * 4, 2 * q * n * d))
+    row("read_probe", "blk 8192, slots 2, static", lambda: read_probe(corpus, 8192, 128, 2, True),
+        lambda: read_probe_plain(corpus, 8192, 128), None, exp_bound(slab + (n // 8192) * (128 * 4 + 8)))
+    row("resident_dot_segmax", "blk 4096", lambda: resident_dot_segmax(qs, corpus, 4096),
+        lambda: resident_dot_plain(qs, corpus, 4096), None,
+        exp_bound(4096 * d * 2 + q * d * 2 + (n // 128) * q * 4, 2 * q * 4096 * d))
+    qf = qs.float()
+    row("stream_fused", "split2.stream_fused: the unmasked kernel, f32 queries, bf16 slab",
+        lambda: fused_score_segmax(qf, corpus), lambda: fused_score_segmax_plain(qf, corpus),
+        lambda: exp_common.gemm_scores(qs, corpus).view(q, n // 128, 128).amax(dim=2),
+        exp_bound(slab + q * d * 2 + q * n * 4 + q * (n // 128) * 4, 2 * q * n * d))
+    log({"slab_read": "bfloat16", "N": n, "D": d, "sum_ms": cuda_ms(lambda: corpus.view(-1).sum(), reps=5, calls=5),
+         "bytes": slab, "card": card})
+    del corpus, qs, qf
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2290,6 +2505,13 @@ def main(argv=None) -> int:
         log({"launches": {"fused_score_segmax": topk_launches}, "segmented_topk_checked": [1, 16, 128]})
         if topk_launches != 3:
             raise AssertionError(f"segmented_topk launched the unmasked kernel {topk_launches} times, want 3")
+
+    with phase("experiments_check", card, seconds):
+        exp_errs = experiments_check(args.seed, dev, card)
+    with phase("experiments", card, seconds):
+        exp_launches = run_experiments(dev)
+    with phase("experiments_times", card, seconds):
+        exp_times = experiments_times(args.seed, dev, card)
 
     with phase("times", card, seconds):
         main_path = None
@@ -2414,14 +2636,27 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": UNMASKED_REPLACES,
-        "launches": topk_launches,
+        "launches": topk_launches + exp_launches["fused_score_segmax"],
         "max_abs_err": max_err_unmasked,
         "ms": unmasked_main["ms"],
         "plain_ms": unmasked_main["plain_ms"],
         "bound_ms": unmasked_main["bound_ms"],
         "bound_by": unmasked_main["bound_by"],
         "library_ms": unmasked_main["library_ms"],
-    }]})
+    }, *[{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": exp_launches[name],
+        "max_abs_err": exp_errs[name],
+        **{k: exp_times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for name, source, replaces in (
+        ("segmax", SEGMAX_SOURCE, SEGMAX_REPLACES),
+        ("stream_segmax", STREAM_SOURCE, STREAM_REPLACES),
+        ("read_probe", STREAM_SOURCE, PROBE_REPLACES),
+        ("resident_dot_segmax", STREAM_SOURCE, RESIDENT_REPLACES),
+    )]]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -2476,7 +2711,9 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             raise AssertionError("embeddings are not finite [n, 768]")
         ingest = {"ingest_chunks": len(texts), "pdf_chunks": n_pdf, "live_chunks": live,
                   "reranker_load_s": t_reranker, "create_s": t_create, "embed_s": t_embed, "embed_chunks_per_s": len(texts) / t_embed,
-                  "store_and_bm25_s": t_add, "save_s": t_save, "warmup_s": t_warmup,
+                  "store_and_bm25_s": t_add, "save_s": t_save,
+                  "save_bytes": os.path.getsize(persistence.get_index_path(engine.data_dir, engine.embedding_model())),
+                  "warmup_s": t_warmup,
                   "ingest_chunks_per_s": len(texts) / (t_embed + t_add)}
         log(ingest)
 

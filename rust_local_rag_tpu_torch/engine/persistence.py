@@ -12,10 +12,11 @@ with the JAX package's).
   * embeddings are re-normalised on load.
 
 The native format is packed npz (one [N, D] f32 embedding matrix + one JSON
-metadata blob). The reference's JSON v2 format (chunks_{model}.json) is
-still read and migrated to npz, and a legacy chunks.json is migrated when
-its model matches; neither is ever deleted. export_reference_json writes
-the JSON v2 format.
+metadata blob), the embeddings stored and the metadata deflated; files
+deflated throughout load as well. The reference's JSON v2 format
+(chunks_{model}.json) is still read and migrated to npz, and a legacy
+chunks.json is migrated when its model matches; neither is ever deleted.
+export_reference_json writes the JSON v2 format.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import json
 import logging
 import os
 import tempfile
+import zipfile
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -85,14 +87,15 @@ def _normalize_rows_inplace(emb: np.ndarray) -> None:
     emb[ok] = emb[ok] / np.sqrt(norm_sq[ok])[:, None]
 
 
-def _atomic_write(path: str, data: bytes) -> None:
-    """tmp + rename in the destination directory (rag_engine.rs:1503-1509)."""
+def _atomic_write(path: str, write) -> None:
+    """tmp + rename in the destination directory (rag_engine.rs:1503-1509):
+    write(f) fills the temporary file, which replaces path only when whole."""
     d = os.path.dirname(path) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            write(f)
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -102,9 +105,9 @@ def _atomic_write(path: str, data: bytes) -> None:
         raise
 
 
-def save_index(data_dir: str, state: IndexState) -> str:
-    """Persist to the native packed format atomically. Returns the path."""
-    meta_blob = {
+def _meta_json(state: IndexState) -> bytes:
+    """The npz's metadata blob: the schema fields and every chunk record."""
+    blob = {
         "version": SCHEMA_VERSION,
         "model": state.model,
         "needs_reindex": state.needs_reindex,
@@ -122,16 +125,34 @@ def save_index(data_dir: str, state: IndexState) -> str:
             for m in state.metas
         ],
     }
-    buf = io.BytesIO()
-    np.savez_compressed(
-        buf,
-        embeddings=np.asarray(state.embeddings, dtype=np.float32),
-        meta_json=np.frombuffer(
-            json.dumps(meta_blob, ensure_ascii=False).encode("utf-8"), dtype=np.uint8
-        ),
-    )
+    return json.dumps(blob, ensure_ascii=False).encode("utf-8")
+
+
+def _write_npz(f, emb: np.ndarray, meta: bytes) -> None:
+    """np.savez's layout, one .npy member each, with the f32 embeddings
+    stored and the metadata JSON deflated at level 1."""
+    with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED, allowZip64=True) as z:
+        with z.open("embeddings.npy", "w", force_zip64=True) as m:
+            np.lib.format.write_array(m, emb, allow_pickle=False)
+        buf = io.BytesIO()
+        np.lib.format.write_array(buf, np.frombuffer(meta, dtype=np.uint8), allow_pickle=False)
+        z.writestr("meta_json.npy", buf.getvalue(), compress_type=zipfile.ZIP_DEFLATED, compresslevel=1)
+
+
+def save_index(data_dir: str, state: IndexState) -> str:
+    """Persist to the native packed format atomically. Returns the path.
+
+    The npz is written straight into the temporary file, its embeddings
+    stored: deflating f32 noise took 5.5 of the 5.9 s a save of a
+    33,033-chunk index took on an H100 machine's host (PERF.md), past the
+    shutdown flush's 5 s budget, and saved little. The metadata JSON,
+    which deflates well, is deflated at level 1. np.load reads stored and
+    deflated members alike, so the JAX package loads these files and the
+    port still loads files deflated throughout, the JAX package's too."""
+    emb = np.asarray(state.embeddings, dtype=np.float32)
+    meta = _meta_json(state)
     path = get_index_path(data_dir, state.model)
-    _atomic_write(path, buf.getvalue())
+    _atomic_write(path, lambda f: _write_npz(f, emb, meta))
     logger.debug(
         "Saved %d chunks to %s for model '%s'", len(state.metas), path, state.model
     )
@@ -160,7 +181,8 @@ def export_reference_json(data_dir: str, state: IndexState) -> str:
         "document_hashes": state.document_hashes,
     }
     path = get_reference_json_path(data_dir, state.model)
-    _atomic_write(path, json.dumps(blob, indent=2).encode("utf-8"))
+    data = json.dumps(blob, indent=2).encode("utf-8")
+    _atomic_write(path, lambda f: f.write(data))
     return path
 
 

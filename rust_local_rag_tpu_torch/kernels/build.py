@@ -66,6 +66,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 9, _I, _I, _P]),
         "attention_error_string": (ctypes.c_char_p, [_I]),
     },
+    "segmax": {
+        "segmax_rows": (_I, [_P, _P, _L, _L, _I, _L, _I, _I, _P]),
+        "segmax_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "stream_probe": {
+        "stream_segmax": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P]),
+        "resident_dot_segmax": (_I, [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
+        "read_probe": (_I, [_P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
+        "stream_probe_error_string": (ctypes.c_char_p, [_I]),
+    },
     "lexical": {
         "bm25_create": (_P, []),
         "bm25_destroy": (None, [_P]),

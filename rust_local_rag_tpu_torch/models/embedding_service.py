@@ -4,9 +4,13 @@ search and ingest path use).
 
   * a 1000-entry LRU cache of query embeddings (utils/lru.LruCache, locked,
     so the batcher's concurrent batches can share it);
-  * embed_in_batches: length-sorted batches of EMBEDDING_BATCH_SIZE with
-    the original order restored, a cooldown between batches, a per-batch
-    progress callback and a per-batch timeout;
+  * get_embedding, get_query_embedding (through the query cache) and
+    embed_texts: one batch, encoded again one text at a time when the
+    batch raises or returns the wrong row count (embeddings.rs:169-176);
+  * embed_in_batches: length-sorted batches of EMBEDDING_BATCH_SIZE, each
+    through embed_texts, with the original order restored, a cooldown
+    between batches, a per-batch progress callback and a per-batch
+    timeout;
   * get_query_embeddings_device: query embeddings left on the device for
     the search dispatch;
   * build_default_service: the committed encoder, or the hash encoder when
@@ -85,11 +89,22 @@ class EmbeddingService:
             self._executor.shutdown(wait=True)
             self._executor = None
 
+    def get_embedding(self, text: str) -> np.ndarray:
+        return self._model.encode([text])[0]
+
     def _encode_queries(self, texts: Sequence[str]) -> np.ndarray:
         fn = getattr(self._model, "encode_queries", None)
         if fn is not None:
             return fn(list(texts))
         return self._model.encode(list(texts))
+
+    def get_query_embedding(self, text: str) -> np.ndarray:
+        cached = self._cache.get(text)
+        if cached is not None:
+            return cached
+        emb = self._encode_queries([text])[0]
+        self._cache.put(text, emb)
+        return emb
 
     def get_query_embeddings(self, texts: Sequence[str]) -> np.ndarray:
         """All cache misses are embedded in ONE model call; every result
@@ -112,6 +127,26 @@ class EmbeddingService:
         if fn is None:
             return None
         return fn(list(texts))
+
+    def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """[n] texts -> [n, dim] f32 in one model call; when it raises or
+        returns another row count than n, each text is encoded on its own
+        (a text that still fails raises)."""
+        if not texts:
+            return np.zeros((0, self.dim), dtype=np.float32)
+        if len(texts) == 1:
+            return self._model.encode([texts[0]])
+        try:
+            out = self._model.encode(list(texts))
+            if out.shape[0] == len(texts):
+                return out
+            logger.warning(
+                "Batch embedding returned %d embeddings for %d texts, falling back to sequential",
+                out.shape[0], len(texts),
+            )
+        except Exception as e:  # noqa: BLE001 - retried one text at a time below
+            logger.warning("Batch embedding failed (%s), falling back to sequential", e)
+        return np.stack([self.get_embedding(t) for t in texts])
 
     def embed_in_batches(
         self,
@@ -138,7 +173,7 @@ class EmbeddingService:
             idxs = order[lo:hi]
             batch_texts = [texts[i] for i in idxs]
             batch = self._encode_with_timeout(
-                lambda bt=batch_texts: self._model.encode(bt), timeout_s
+                lambda bt=batch_texts: self.embed_texts(bt), timeout_s
             )
             if batch.shape[0] != hi - lo:
                 raise RuntimeError(

@@ -24,8 +24,9 @@ from rust_local_rag_tpu_torch.server.app import build_runtime
 PKG = os.path.dirname(rust_local_rag_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG)
 # the card's machine has none of the last five; the eval harness's client
-# and runner import requests and yaml
-FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "safetensors", "tokenizers", "aiohttp", "requests", "yaml")
+# and runner import requests and yaml; scripts/ holds the JAX experiments
+FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "scripts", "safetensors", "tokenizers", "aiohttp", "requests",
+             "yaml")
 
 
 def _port_files():
@@ -111,11 +112,24 @@ def test_entry_points_default_to_cuda_and_refuse(no_card, tmp_path, monkeypatch)
     assert sorted(os.listdir(tmp_path)) == ["log_dir"]  # the log file only
 
 
+@pytest.mark.parametrize("name", ["split_pipeline", "split2", "stream_kernel", "isolate_kernel", "isolate2",
+                                  "dma_probe"])
+def test_experiment_entry_points_refuse_without_card(no_card, name):
+    """`python -m rust_local_rag_tpu_torch.experiments.<name>` runs on the
+    card by default and raises without one, before it makes any data."""
+    import importlib
+
+    mod = importlib.import_module(f"rust_local_rag_tpu_torch.experiments.{name}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main([])
+
+
 def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
     a = build.library_path("score_segmax")
     assert a == build.library_path("score_segmax")
     assert os.path.dirname(a) == build.BUILD_DIR and "sm_90a" in " ".join(build.NVCC_FLAGS)
-    assert set(build.SIGNATURES) == {"score_segmax", "attention", "lexical", "wordpiece", "serializer"}
+    assert set(build.SIGNATURES) == {"score_segmax", "attention", "segmax", "stream_probe", "lexical", "wordpiece",
+                                     "serializer"}
     assert build.library_path("attention") != a
     # the host sources and the g++ flags are part of every library's hash
     csrc = tmp_path / "csrc"

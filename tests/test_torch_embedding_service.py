@@ -174,3 +174,71 @@ def test_hermetic_default_services_like_jax(monkeypatch):
     monkeypatch.setenv("RAG_TPU_FAKE_RERANKER", "1")
     svc = build_default_reranker("cuda")  # the hash judge needs no device
     assert isinstance(svc._model, TFake) and svc.model_name == j_rr().model_name == "fake-rr"
+
+
+class FailingBatchEncoder(HashEncoder):
+    """Raises on any call of more than one text (an out-of-memory batch)."""
+
+    def __init__(self):
+        super().__init__(dim=DIM)
+
+    def encode(self, texts):
+        if len(texts) > 1:
+            raise RuntimeError("CUDA out of memory (simulated)")
+        return super().encode(texts)
+
+
+class ShortBatchEncoder(HashEncoder):
+    """Drops the last row of any call of more than one text."""
+
+    def __init__(self):
+        super().__init__(dim=DIM)
+
+    def encode(self, texts):
+        out = super().encode(texts)
+        return out[:-1] if len(texts) > 1 else out
+
+
+@pytest.mark.parametrize("model_cls", [FailingBatchEncoder, ShortBatchEncoder])
+def test_embed_in_batches_falls_back_per_text_as_jax(model_cls):
+    """A batch that raises or returns the wrong row count is encoded again
+    one text at a time (JAX embed_texts, embedding_service.py:132-156), so
+    every chunk of the document still gets its row, equal to the JAX
+    service's and to the model's own single-text rows."""
+    texts = [f"chunk {i} " + "word " * (i % 7) for i in range(11)]
+    want = np.stack([HashEncoder(dim=DIM).encode([t])[0] for t in texts])
+    got_j = JService(model_cls()).embed_in_batches(texts, batch_size=4, cooldown_ms=0)
+    got_t = TService(model_cls()).embed_in_batches(texts, batch_size=4, cooldown_ms=0)
+    np.testing.assert_array_equal(got_j, want)
+    np.testing.assert_array_equal(got_t, got_j)
+
+
+def test_embed_texts_matches_jax_and_raises_on_a_failing_text():
+    texts = ["alpha beta", "gamma", "delta epsilon zeta"]
+    for model_cls in (HashEncoder, FailingBatchEncoder, ShortBatchEncoder):
+        a = JService(model_cls(dim=DIM) if model_cls is HashEncoder else model_cls()).embed_texts(texts)
+        b = TService(model_cls(dim=DIM) if model_cls is HashEncoder else model_cls()).embed_texts(texts)
+        np.testing.assert_array_equal(b, a)
+    assert TService(HashEncoder(dim=DIM)).embed_texts([]).shape == (0, DIM)
+
+    class AlwaysFails(HashEncoder):
+        def encode(self, texts):
+            raise RuntimeError("encoder down")
+
+    for svc in (JService(AlwaysFails(dim=DIM)), TService(AlwaysFails(dim=DIM))):
+        with pytest.raises(RuntimeError, match="encoder down"):
+            svc.embed_texts(texts)
+
+
+def test_get_embedding_and_get_query_embedding_match_jax():
+    """get_embedding is the model's row; get_query_embedding goes through
+    the query cache (one model call for a repeated query), as in JAX."""
+    mj, mt = CountingEncoder(), CountingEncoder()
+    sj, st = JService(mj), TService(mt)
+    np.testing.assert_array_equal(st.get_embedding("some text"), sj.get_embedding("some text"))
+    for q in ("first query", "second query", "first query"):
+        np.testing.assert_array_equal(st.get_query_embedding(q), sj.get_query_embedding(q))
+    assert mt.calls == mj.calls == [["some text"], ["first query"], ["second query"]]
+    # the single-query and batch lanes share one cache
+    np.testing.assert_array_equal(st.get_query_embeddings(["second query"])[0], sj.get_query_embedding("second query"))
+    assert len(mt.calls) == 3

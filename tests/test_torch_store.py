@@ -255,3 +255,70 @@ def test_unreadable_reference_json_like_jax(tmp_path, rng, case):
     _same_result(a, b)
     assert a.state is None and a.needs_reindex == (case != "legacy_garbage")
     assert files_a == files_b == [name]
+
+
+def test_saved_index_is_stored_uncompressed_and_loads_in_jax(tmp_path, rng):
+    """The npz's embeddings are stored, not deflated (zlib over f32 noise
+    took most of a save and saved little), its metadata JSON deflated;
+    the JAX package's
+    load_index reads the port's file, and the port still reads the JAX
+    package's compressed one."""
+    import zipfile
+
+    st = _state(tper.IndexState, TMeta, rng)
+    path = tper.save_index(str(tmp_path / "t"), st)
+    with zipfile.ZipFile(path) as z:
+        assert {i.filename: i.compress_type for i in z.infolist()} == {
+            "embeddings.npy": zipfile.ZIP_STORED, "meta_json.npy": zipfile.ZIP_DEFLATED}
+    a, b = tper.load_index(str(tmp_path / "t"), st.model), jper.load_index(str(tmp_path / "t"), st.model)
+    np.testing.assert_array_equal(a.state.embeddings, b.state.embeddings)
+    assert [vars(m) for m in a.state.metas] == [vars(m) for m in b.state.metas]
+    jpath = jper.save_index(str(tmp_path / "j"), _state(jper.IndexState, JMeta, np.random.default_rng(42)))
+    with zipfile.ZipFile(jpath) as z:
+        assert all(i.compress_type == zipfile.ZIP_DEFLATED for i in z.infolist())
+    c, d = tper.load_index(str(tmp_path / "j"), st.model), jper.load_index(str(tmp_path / "j"), st.model)
+    np.testing.assert_array_equal(c.state.embeddings, d.state.embeddings)
+    assert [vars(m) for m in c.state.metas] == [vars(m) for m in d.state.metas]
+
+
+def test_shutdown_flush_saves_an_unsaved_mutation_at_index_size(tmp_path, caplog):
+    """ROADMAP C8: an index of the chip smoke's size (33,033 chunks of 768
+    dims) is mutated with no save after it; the shutdown flush
+    (graceful_flush: the write lock, the reference's 5 s budget) must log a
+    completed save, and a reload, by the port and by the JAX package, must
+    see the mutation."""
+    import logging
+    import types
+
+    from rust_local_rag_tpu_torch.engine.rag_engine import RagEngine
+    from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService
+    from rust_local_rag_tpu_torch.models.fake_encoder import HashEncoder
+    from rust_local_rag_tpu_torch.server.app import graceful_flush
+    from rust_local_rag_tpu_torch.utils.rwlock import RwLock
+
+    n, d = 33033, 768
+    data = str(tmp_path / "data")
+    engine = RagEngine(data, EmbeddingService(HashEncoder(dim=d)), device="cpu")
+    rows = np.random.default_rng(3).standard_normal((n, d)).astype(np.float32)
+    engine.add_chunks([TMeta(id=f"c{i}", document_name=f"doc{i // 1000}", text=f"record {i}", chunk_index=i % 1000)
+                       for i in range(n)], rows)
+    engine.document_hashes = {f"doc{i}": f"h{i}" for i in range(n // 1000 + 1)}
+    engine.save_to_disk()
+    # the mutation no save covers: one document replaced, two chunks added
+    engine._remove_document_chunks("doc0")
+    new = [TMeta(id=f"new{i}", document_name="late.pdf", text=f"late text {i}", chunk_index=i) for i in range(2)]
+    engine.add_chunks(new, rows[:2] * -1.0)
+    engine.document_hashes["late.pdf"] = "h-late"
+    live = len(engine.store)
+    assert live == n - 1000 + 2
+
+    caplog.set_level(logging.INFO, logger="rust_local_rag_tpu_torch.server.app")
+    graceful_flush(types.SimpleNamespace(engine=engine, engine_lock=RwLock()))
+    assert "RAG state successfully saved to disk" in caplog.messages, caplog.messages
+    model = engine.embedding_model()
+    for res in (tper.load_index(data, model), jper.load_index(data, model)):
+        ids = [m.id for m in res.state.metas]
+        assert len(ids) == live and {"new0", "new1", "c1000"} <= set(ids) and "c0" not in ids
+        assert res.state.document_hashes["late.pdf"] == "h-late"
+        got = res.state.embeddings[[ids.index("new0"), ids.index("new1")]]
+        np.testing.assert_allclose(got, -rows[:2] / np.linalg.norm(rows[:2], axis=1)[:, None], rtol=1e-6, atol=1e-6)
