@@ -19,7 +19,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    step to the Q > 16 body (Q 1, 2, 3, 5, 8, 9, 15, 16, 17), N 65,536 and
    65,920 (not a multiple of the stream's stride), D 768 and 776 (ragged
    against its tile depth), with one segment wholly freed, and slabs with
-   every slot freed; the attention kernel against attention_plain at every
+   every slot freed; then the tensor-core body on bf16 slabs at the same
+   shapes and freed slots, with f32 queries (three bf16 terms) at Q 17,
+   32, 64, 128, 129 and 512 and bf16 queries (one term) at those and Q 1
+   and 16; the attention kernel against attention_plain at every
    shape the path gives it (reranker causal H 6 L 192, encoder H 8 L 64 /
    256 / 512), with a length-1 row and an all-masked row, then at edge
    shapes (L 1, 17, 100, 257, 500, 512; B 1 and 3; causal and not) and,
@@ -29,10 +32,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    WordPiece tokenizer and the native BM25 index, checked), add_document
    for PDFs written here, then seeded chunks through embed_in_batches and
    the store + lexical index until more than 32,768 chunks are live (slab
-   capacity 65,536, the kernel's branch of hybrid_topk), timing the parts
-   of one save of that index as it was written before ROADMAP C8's repair
-   (np.savez_compressed into memory, then the file) and after it (np.savez
-   straight into the file); engine.warmup();
+   capacity 65,536, the kernel's branch of hybrid_topk), one save of that
+   index (seconds and bytes); engine.warmup();
    lexical_check (its queries, and those of every phase added with it,
    from a stream of their own, so earlier phases keep theirs): a
    pure-Python BM25 index over the same chunks and slots against the
@@ -46,6 +47,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    batch is checked against the plain hybrid path on a CPU copy of the
    same slab, mask, query embeddings and lexical hits; a second engine's
    load_from_disk (then its warmup) must give the same answers;
+   bf16_wide: another engine loads the saved index with
+   RAG_TPU_CORPUS_DTYPE=bf16 behind a SearchBatcher of max batch 64; one
+   burst of 64 queries must run a Q 64 batch through the masked kernel's
+   tensor-core body (launches counted), every batch equal to the plain
+   hybrid path on a CPU copy; then 64-bursts timed through it and through
+   a batcher of max batch 16 on the same engine;
 5. the rerank-on lanes, with RAG_TPU_FUSED_ATTN=1 and the committed
    reranker: encoder_fused holds the encoder with the attention kernel
    against the encoder without it (1,024 ingest chunks and a query batch,
@@ -108,7 +115,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    decide as the HTTP answers did, and on a CPU copy under the
    rerank_check rules);
 7. segmented_topk: the unmasked kernel's own path (bench.py's exact
-   top-k), checked against torch.topk over the full scores; then the
+   top-k) at Q 1, 16 and 128 on an f32 slab and Q 128 on a bf16 slab,
+   checked against torch.topk over the full scores; then the
    exact top-k experiments (scripts/exp_*.py, ported in
    rust_local_rag_tpu_torch/experiments/) at their shape, N 1,245,184,
    D 768, Q 128, bf16: experiments_check holds the segment-max kernel
@@ -116,8 +124,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    seg and operand order (scores within 1e-4 of the largest plain score,
    maxima exactly those of its own scores), the resident-block dot probe
    (within 1e-4, every chunk identical) and the read probe (exact) against
-   their plain versions, and the split pipeline against torch.topk over
-   the same scores; experiments runs every sweep of every module's main
+   their plain versions, the split pipeline against torch.topk over the
+   same scores, and split2.stream_fused (the unmasked kernel's tensor-core
+   body with bf16 queries) against the GEMM's scores and its selection
+   against torch.topk; experiments runs every sweep of every module's main
    with the launch counts set to 0 just before and read just after;
    experiments_times times each new kernel, its plain version and a
    library call beside its bound;
@@ -125,7 +135,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    warm-up, median of repeats, per call): each kernel, its plain version
    and a library call against the bound (score + segment-max at Q 1, 2,
    4, 8, 16 and 128, f32 and bf16, with a plain read of the slab beside
-   them; then checked and timed at bench.py's shard, N 1,245,184, Q 16),
+   them; the tensor-core body on bf16 slabs at Q 64 (N 65,536) and Q 128
+   and 512 (N 1,245,184) with f32 and bf16 queries, beside one library
+   GEMM to f32 + amax and, for f32 queries, the split terms' three bf16
+   GEMMs; then checked and timed at bench.py's shard, N 1,245,184, Q 16),
    and for attention also the span of a single call (host enqueue
    included, the measure of earlier runs) in one table; search latency
    per burst, rerank burst latency per lane and a stage breakdown; ingest
@@ -197,11 +210,13 @@ from rust_local_rag_tpu_torch.ops.mmr import mmr_select_batch
 from rust_local_rag_tpu_torch.ops.native_bm25 import NativeLexicalIndex
 from rust_local_rag_tpu_torch.ops.score_segmax import (
     SEG,
+    STREAM_MAX_Q,
     fused_score_segmax,
     fused_score_segmax_plain,
     score_segmax,
     score_segmax_plain,
     segmented_topk,
+    split_terms_plain,
 )
 from rust_local_rag_tpu_torch.ops.segmax import segmax, segmax_plain
 from rust_local_rag_tpu_torch.ops.stream_probe import (
@@ -228,6 +243,15 @@ DIM = 768
 # rows) and a depth that is ragged against its tile (64 f32, 128 bf16)
 EDGE_Q = (1, 2, 3, 5, 8, 9, 15, 16, 17)
 EDGE_SHAPES = ((65536, 768), (65920, 768), (65536, 776), (65920, 776))
+# the tensor-core body on bf16 slabs: its query tiles (64 queries at Q <= 64,
+# 128 beyond, Q 129 and 512 several), f32 queries (three bf16 terms) and
+# bf16 queries (one term; at any Q, so Q 1 and 16 too), at EDGE_SHAPES
+WIDE_Q = (17, 32, 64, 128, 129, 512)
+BF16_QUERY_Q = (1, 16) + WIDE_Q
+# the tensor-core body timed: the serving shape at a batch of 64
+# (RAG_TPU_BATCH_MAX=64), bench.py's shard at its Q 128 and 512
+WIDE_TIMES = ((64, 65536), (128, 1245184), (512, 1245184))
+WIDE_BATCH = 64  # bf16_wide: the batcher's max batch
 TIME_Q = (1, 2, 4, 8, 16, 128)
 N_BENCH = 1245184  # bench.py's 1,250,000-row shard cut to a multiple of 16,384
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -636,55 +660,149 @@ def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(q: int, corpus_itemsize: int, n: int = N_SLAB, d: int = DIM):
+def bound(q: int, n: int, d: int, corpus_itemsize: int, query_itemsize: int = 4, masked: bool = True):
     """(bound_ms, bound_by): each input read once, each output written once,
-    against the card's memory rate; 2*Q*N*D f32 FMA ops against its f32
-    rate outside the tensor cores."""
-    nbytes = n * d * corpus_itemsize + q * d * 4 + n + q * n * 4 + q * (n // SEG) * 4
+    against the card's memory rate; the product against the rate of the
+    units that run it: 2*Q*N*D f32 FMAs outside the tensor cores (f32
+    slabs; f32 queries at Q <= 16), else terms x 2*Q*N*D on the bf16 tensor
+    cores (three terms for f32 queries, one for bf16)."""
+    nbytes = n * d * corpus_itemsize + q * d * query_itemsize + (n if masked else 0) + q * n * 4 + q * (n // SEG) * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2 * q * n * d / H100_F32_FLOPS * 1e3
+    if corpus_itemsize == 2 and (q > STREAM_MAX_Q or query_itemsize == 2):
+        t_ops = (3 if query_itemsize == 4 else 1) * 2 * q * n * d / H100_BF16_FLOPS * 1e3
+    else:
+        t_ops = 2 * q * n * d / H100_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_call(queries, corpus, mask):
-    neg = ~mask
-    scores = torch.mm(queries, corpus.float().t())
-    scores.masked_fill_(neg[None, :], float("-inf"))
+def library_call(queries, corpus, mask=None):
+    """One library GEMM to f32 and the segment max: bf16 queries x the bf16
+    slab with f32 output; f32 queries x the slab widened to f32 (TF32 off)."""
+    if queries.dtype == torch.bfloat16:
+        scores = torch.mm(queries, corpus.T, out_dtype=torch.float32)
+    else:
+        scores = torch.mm(queries, corpus.float().T)
+    if mask is not None:
+        scores.masked_fill_(~mask[None, :], float("-inf"))
     return scores, scores.view(queries.shape[0], -1, SEG).amax(dim=2)
 
 
-def unmasked_bound(q: int, corpus_itemsize: int, n: int = N_SLAB, d: int = DIM):
-    """As bound() without the mask read."""
-    nbytes = n * d * corpus_itemsize + q * d * 4 + q * n * 4 + q * (n // SEG) * 4
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2 * q * n * d / H100_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def library_unmasked(queries, corpus):
-    scores = torch.mm(queries, corpus.float().t())
-    return scores, scores.view(queries.shape[0], -1, SEG).amax(dim=2)
+def library_split(terms, corpus, mask=None):
+    """The split terms' three bf16 GEMMs to f32, summed, and the segment max
+    (the terms made beforehand by split_terms_plain)."""
+    scores = torch.mm(terms[0], corpus.T, out_dtype=torch.float32)
+    for t in terms[1:]:
+        scores += torch.mm(t, corpus.T, out_dtype=torch.float32)
+    if mask is not None:
+        scores.masked_fill_(~mask[None, :], float("-inf"))
+    return scores, scores.view(terms.shape[1], -1, SEG).amax(dim=2)
 
 
 def score_segmax_times(qs, corpus, mask, card: str, reps: int = 7, calls: int = 10):
-    """The masked and the unmasked kernel, their plain versions and library
-    calls (for a bf16 slab the library line includes corpus.float()) at
-    one shape, each row logged beside its bound. -> (masked, unmasked)."""
+    """The masked and the unmasked kernel, their plain versions and a
+    library call at one shape, each row logged beside its bound; where the
+    tensor-core body splits f32 queries into three bf16 terms, also the
+    terms' three bf16 GEMMs. -> (masked, unmasked)."""
     (q, d), n = qs.shape, corpus.shape[0]
+    split = corpus.dtype == torch.bfloat16 and qs.dtype == torch.float32 and q > STREAM_MAX_Q
+    terms = split_terms_plain(qs) if split else None
     rows = []
-    for name, kernel, plain, library, bound_fn in (
-        ("score_segmax_masked", lambda: score_segmax(qs, corpus, mask),
-         lambda: score_segmax_plain(qs, corpus, mask), lambda: library_call(qs, corpus, mask), bound),
-        ("fused_score_segmax", lambda: fused_score_segmax(qs, corpus),
-         lambda: fused_score_segmax_plain(qs, corpus), lambda: library_unmasked(qs, corpus), unmasked_bound),
+    for name, kernel, plain, m in (
+        ("score_segmax_masked", lambda: score_segmax(qs, corpus, mask), lambda: score_segmax_plain(qs, corpus, mask),
+         mask),
+        ("fused_score_segmax", lambda: fused_score_segmax(qs, corpus), lambda: fused_score_segmax_plain(qs, corpus),
+         None),
     ):
-        b_ms, b_by = bound_fn(q, corpus.element_size(), n, d)
-        row = {"kernel_time": name, "dtype": str(corpus.dtype), "Q": q, "N": n, "D": d,
+        b_ms, b_by = bound(q, n, d, corpus.element_size(), qs.element_size(), m is not None)
+        row = {"kernel_time": name, "dtype": str(corpus.dtype), "queries": str(qs.dtype), "Q": q, "N": n, "D": d,
                "ms": cuda_ms(kernel, reps, calls), "plain_ms": cuda_ms(plain, reps, calls),
-               "library_ms": cuda_ms(library, reps, calls), "bound_ms": b_ms, "bound_by": b_by, "card": card}
+               "library_ms": cuda_ms(lambda: library_call(qs, corpus, m), reps, calls),
+               "bound_ms": b_ms, "bound_by": b_by, "card": card}
+        if split:
+            row["library_split_ms"] = cuda_ms(lambda: library_split(terms, corpus, m), reps, calls)
         log(row)
         rows.append(row)
     return rows
+
+
+def wide_times(seed: int, dev, card: str) -> dict:
+    """The tensor-core body at WIDE_TIMES on bf16 slabs with f32 and bf16
+    queries (score_segmax_times). -> {(entry, Q, N, query dtype): row}."""
+    rows = {}
+    for q, n in WIDE_TIMES:
+        queries, corpus, mask = kernel_case(seed, q, torch.bfloat16, dev, n)
+        reps, calls = (7, 10) if n == N_SLAB else (5, 3)
+        for qdt in (torch.float32, torch.bfloat16):
+            for row in score_segmax_times(queries.to(qdt), corpus, mask, card, reps, calls):
+                rows[(row["kernel_time"], q, n, str(qdt))] = row
+        del queries, corpus, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_wide(engine, dev, card: str, rng, probs, reps: int = 5) -> dict:
+    """Another engine over the saved index with RAG_TPU_CORPUS_DTYPE=bf16
+    behind a SearchBatcher of max batch WIDE_BATCH: one burst of
+    WIDE_BATCH queries, its batches (the kernel's tensor-core body at
+    Q 64) checked against the plain hybrid path on a CPU copy, then the
+    burst's latency beside the same engine behind a batcher of max batch
+    16 (median of reps after a warm-up)."""
+    prev = os.environ.get("RAG_TPU_CORPUS_DTYPE")
+    os.environ["RAG_TPU_CORPUS_DTYPE"] = "bf16"
+    try:
+        wide = RagEngine(engine.data_dir, engine.embedding_service, device=dev)
+    finally:
+        if prev is None:
+            os.environ.pop("RAG_TPU_CORPUS_DTYPE")
+        else:
+            os.environ["RAG_TPU_CORPUS_DTYPE"] = prev
+    if wide.store.corpus().dtype != torch.bfloat16 or len(wide.store) != len(engine.store):
+        raise AssertionError(f"bf16_wide: {wide.store.corpus().dtype} slab of {len(wide.store)} chunks")
+    wide.warmup()
+    recorded = []
+    dispatch = wide.dispatch_search
+
+    def recording_dispatch(queries, top_k, *a, **kw):
+        pending = dispatch(queries, top_k, *a, **kw)
+        recorded.append((list(queries), pending))
+        return pending
+
+    batchers = {size: SearchBatcher(wide, RwLock(), max_batch=size) for size in (WIDE_BATCH, 16)}
+    try:
+        burst = queries_for(rng, WIDE_BATCH, probs)
+        wide.dispatch_search = recording_dispatch
+        score_segmax.launches = 0
+        futs = [batchers[WIDE_BATCH].submit(q, TOP_K, 0.0, None, use_reranker=False) for q in burst]
+        answers = {q: f.result(timeout=300) for q, f in zip(burst, futs)}
+        launches = score_segmax.launches
+        wide.dispatch_search = dispatch
+        padded = [p.out.shape[0] for _, p in recorded]
+        log({"bf16_wide": "burst", "queries": len(burst), "batch_sizes": [len(qs) for qs, _ in recorded],
+             "kernel_q": padded, "launches": {"score_segmax_masked": launches}, "card": card})
+        if launches <= 0 or WIDE_BATCH not in padded:
+            raise AssertionError(f"bf16_wide: launches {launches}, kernel batches {padded}: no Q {WIDE_BATCH} batch")
+        corpus_cpu = wide.store.corpus().cpu()
+        mask_cpu = wide.store.valid_mask().cpu()
+        for queries, pending in recorded:
+            for q, want in zip(queries, plain_reference(pending, corpus_cpu, mask_cpu)):
+                same_topk(rows_of(answers[q], wide.store), want, SCORE_TOL, f"bf16_wide plain vs kernel {q!r}")
+        latency = {}
+        for max_batch, batcher in batchers.items():
+            lat = []
+            for rep in range(reps + 1):
+                qs = queries_for(rng, WIDE_BATCH, probs)
+                t0 = time.perf_counter()
+                for f in [batcher.submit(q, TOP_K, 0.0, None, use_reranker=False) for q in qs]:
+                    f.result(timeout=300)
+                if rep:  # the first burst is a warm-up
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            latency[max_batch] = lat
+            log({"bf16_wide_burst": WIDE_BATCH, "max_batch": max_batch, "median_ms": statistics.median(lat),
+                 "min_ms": min(lat), "max_ms": max(lat), "reps": reps, "card": card})
+    finally:
+        for batcher in batchers.values():
+            batcher.stop()
+    return {"launches": launches, "checked": len(burst), "latency": latency}
 
 
 def attention_bound(b: int, h: int, l: int):
@@ -2265,8 +2383,8 @@ def rel_err(got, want) -> float:
 def experiments_check(seed: int, dev, card: str) -> dict:
     """K1-K4 (csrc/segmax.cu, csrc/stream_probe.cu) against their plain
     versions at the experiments' shape, N 1,245,184, D 768, Q 128 bf16, and
-    the split pipeline against torch.topk over the same scores.
-    -> {kernel: max_abs_err}."""
+    the split pipeline and split2.stream_fused against torch.topk over the
+    same scores. -> {kernel: max_abs_err}."""
     n, d, q = N_BENCH, exp_common.D, exp_common.Q
     corpus = exp_common.normal_bf16((n, d), seed + 20, dev)
     qs = exp_common.normal_bf16((q, d), seed + 21, dev)
@@ -2326,6 +2444,18 @@ def experiments_check(seed: int, dev, card: str) -> dict:
         if not (torch.equal(heads, wh) and torch.equal(sums, ws)):
             raise AssertionError(f"read_probe blk={blk} slots={slots} static={static}: differs from the plain read")
         log({"kernel_check": "read_probe", "blk": blk, "slots": slots, "static": static, "exact": True, "card": card})
+    # split2.stream_fused (the unmasked kernel's tensor-core body, bf16
+    # queries as they are): scores within EXP_REL_TOL of the GEMM's, its
+    # selection the exact top-100 of its own scores
+    fs, fsm = split2.stream_fused(qs, corpus)
+    err = rel_err(fs, st)
+    fv, fi = torch.topk(fs, exp_common.K, dim=1)
+    okv, oki, ties = exp_common.same_topk(*split2.select(fs, fsm.T), fv, fi)
+    log({"kernel_check": "split2.stream_fused", "body": "tensor cores, one bf16 term", "scores_rel_err": err,
+         "tol": EXP_REL_TOL, "values_exact": okv, "indices_exact": oki, "boundary_ties": ties, "card": card})
+    if not (okv and oki) or not err <= EXP_REL_TOL:
+        raise AssertionError(f"split2.stream_fused: rel err {err}, exact {okv} {oki}")
+    del fs, fsm, fv, fi
     # the split pipeline: exact top-100 of the same scores
     wv, wi = torch.topk(st, exp_common.K, dim=1)
     gv, gi = split_pipeline.pipeline_qn(128, 32768, 128)(qs, corpus)
@@ -2367,8 +2497,8 @@ def exp_bound(nbytes: float, ops: float = 0.0):
 def experiments_times(seed: int, dev, card: str) -> dict:
     """Each new kernel at the experiments' main setting beside its plain
     version, a library call where one computes the same function, and its
-    bound; and the fused row (split2.stream_fused: the unmasked kernel at
-    Q 128 on the bf16 slab). -> {name: row}."""
+    bound; and the fused row (split2.stream_fused: the unmasked kernel's
+    tensor-core body at Q 128, bf16 queries on the bf16 slab). -> {name: row}."""
     n, d, q = N_BENCH, exp_common.D, exp_common.Q
     corpus = exp_common.normal_bf16((n, d), seed + 20, dev)
     qs = exp_common.normal_bf16((q, d), seed + 21, dev)
@@ -2401,14 +2531,13 @@ def experiments_times(seed: int, dev, card: str) -> dict:
     row("resident_dot_segmax", "blk 4096", lambda: resident_dot_segmax(qs, corpus, 4096),
         lambda: resident_dot_plain(qs, corpus, 4096), None,
         exp_bound(4096 * d * 2 + q * d * 2 + (n // 128) * q * 4, 2 * q * 4096 * d))
-    qf = qs.float()
-    row("stream_fused", "split2.stream_fused: the unmasked kernel, f32 queries, bf16 slab",
-        lambda: fused_score_segmax(qf, corpus), lambda: fused_score_segmax_plain(qf, corpus),
+    row("stream_fused", "split2.stream_fused: the unmasked kernel's tensor-core body, bf16 queries and slab",
+        lambda: split2.stream_fused(qs, corpus), lambda: fused_score_segmax_plain(qs, corpus),
         lambda: exp_common.gemm_scores(qs, corpus).view(q, n // 128, 128).amax(dim=2),
         exp_bound(slab + q * d * 2 + q * n * 4 + q * (n // 128) * 4, 2 * q * n * d))
     log({"slab_read": "bfloat16", "N": n, "D": d, "sum_ms": cuda_ms(lambda: corpus.view(-1).sum(), reps=5, calls=5),
          "bytes": slab, "card": card})
-    del corpus, qs, qf
+    del corpus, qs
     torch.cuda.empty_cache()
     return rows
 
@@ -2471,6 +2600,23 @@ def main(argv=None) -> int:
                 max_err_unmasked = max(max_err_unmasked, *errs["fused_score_segmax"])
                 log({"kernel_edges": str(dtype), "N": n, "D": d, "Q": list(EDGE_Q), "max_abs_err": errs,
                      "tol": SCORE_TOL, "card": card})
+        # the tensor-core body: bf16 slabs with f32 queries past the stream
+        # and bf16 queries at any Q, each Q on its own data
+        for qdt, q_list in ((torch.float32, WIDE_Q), (torch.bfloat16, BF16_QUERY_Q)):
+            for n, d in EDGE_SHAPES:
+                errs = {"score_segmax_masked": [], "fused_score_segmax": [], "all_freed": []}
+                for q in q_list:
+                    queries, corpus, mask = kernel_case(args.seed + q, q, torch.bfloat16, dev, n, d, freed="segment")
+                    queries = queries.to(qdt)
+                    errs["score_segmax_masked"].append(check_kernel(queries, corpus, mask))
+                    errs["fused_score_segmax"].append(check_unmasked(queries, corpus))
+                    queries, corpus, mask = kernel_case(args.seed + q, q, torch.bfloat16, dev, n, d, freed="all")
+                    errs["all_freed"].append(check_kernel(queries.to(qdt), corpus, mask))
+                    del queries, corpus, mask
+                max_err = max(max_err, *errs["score_segmax_masked"], *errs["all_freed"])
+                max_err_unmasked = max(max_err_unmasked, *errs["fused_score_segmax"])
+                log({"kernel_wide": "torch.bfloat16", "queries": str(qdt), "N": n, "D": d, "Q": list(q_list),
+                     "max_abs_err": errs, "tol": SCORE_TOL, "card": card})
         cases = ([(shape, False) for shape in ATTN_SHAPES + ATTN_EDGE]
                  + [(shape, True) for shape in ATTN_SCATTERED])
         for i, ((b, h, l, causal), scattered) in enumerate(cases):
@@ -2492,19 +2638,22 @@ def main(argv=None) -> int:
         # kernel, then the segmented selection, against torch.topk over
         # the full plain scores
         fused_score_segmax.launches = 0
-        for q in (1, 16, 128):
-            queries, corpus, _ = kernel_case(args.seed + 1, q, torch.float32, dev)
+        topk_cases = ((1, torch.float32), (16, torch.float32), (128, torch.float32), (128, torch.bfloat16))
+        for q, dtype in topk_cases:
+            queries, corpus, _ = kernel_case(args.seed + 1, q, dtype, dev)
             vals, idx = segmented_topk(queries, corpus, TOP_K)
             fv, fi = torch.topk(fused_score_segmax_plain(queries, corpus)[0], TOP_K, dim=1)
             torch.cuda.synchronize()
             for r in range(q):
                 got = [(int(i), float(v)) for i, v in zip(idx[r].tolist(), vals[r].tolist())]
                 want = [(int(i), float(v)) for i, v in zip(fi[r].tolist(), fv[r].tolist())]
-                same_topk(got, want, SCORE_TOL, f"segmented_topk Q{q} row {r}")
+                same_topk(got, want, SCORE_TOL, f"segmented_topk Q{q} {dtype} row {r}")
         topk_launches = fused_score_segmax.launches
-        log({"launches": {"fused_score_segmax": topk_launches}, "segmented_topk_checked": [1, 16, 128]})
-        if topk_launches != 3:
-            raise AssertionError(f"segmented_topk launched the unmasked kernel {topk_launches} times, want 3")
+        log({"launches": {"fused_score_segmax": topk_launches},
+             "segmented_topk_checked": [[q, str(dtype)] for q, dtype in topk_cases]})
+        if topk_launches != len(topk_cases):
+            raise AssertionError(f"segmented_topk launched the unmasked kernel {topk_launches} times, "
+                                 f"want {len(topk_cases)}")
 
     with phase("experiments_check", card, seconds):
         exp_errs = experiments_check(args.seed, dev, card)
@@ -2527,6 +2676,11 @@ def main(argv=None) -> int:
             log({"slab_read": str(dtype), "N": N_SLAB, "D": DIM, "sum_ms": cuda_ms(lambda: flat.sum()),
                  "bytes": flat.numel() * flat.element_size(), "card": card})
             del qs, corpus, mask, flat
+        wide_rows = wide_times(args.seed, dev, card)
+        log({"wide_table": [{"entry": k[0], "Q": k[1], "N": k[2], "queries": k[3],
+                             **{f: r[f] for f in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                                                  "library_split_ms") if f in r}} for k, r in wide_rows.items()],
+             "card": card})
         # bench.py's shard at the serving path's widest batch: checked, then timed
         for dtype in (torch.float32, torch.bfloat16):
             qs, corpus, mask = kernel_case(args.seed, 16, dtype, dev, N_BENCH)
@@ -2574,7 +2728,8 @@ def main(argv=None) -> int:
                  "max_ms": max(lat), "reps": len(lat), "card": card})
     log({"phase_seconds": seconds, "card": card})
     srv = result["server"]
-    masked_by_path = {"hot": result["launches"], "mmr": result["mmr"]["launches"],
+    masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
+                      "mmr": result["mmr"]["launches"],
                       **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()},
                       "http": srv["launches"]["score_segmax_masked"]}
     log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
@@ -2781,6 +2936,9 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             log({"reload_checked": len(qs)})
             del engine2
 
+        with phase("bf16_wide", card, seconds):
+            wide = bf16_wide(engine, dev, card, np.random.default_rng([args.seed, 11]), probs)
+
         with phase("latency", card, seconds):
             latency = {}
             for b in BURSTS:
@@ -2824,7 +2982,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
     padded = [p.out.shape[0] for _, p in recorded]
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
             "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
-            "lexical": lex_stats, "tokenizer": tok_stats, "server": server}
+            "lexical": lex_stats, "tokenizer": tok_stats, "server": server, "bf16_wide": wide}
 
 
 if __name__ == "__main__":

@@ -11,22 +11,27 @@
 //   segmax[q, s] = max(scores[q, 128 s : 128 s + 128])
 // segmax is [Q, N/128] here (the TPU stored it transposed only for its
 // store alignment); the selection step reads this layout. The unmasked
-// entry never reads a mask. Products are f32 FMA on the CUDA cores: an f32
-// slab stays at full f32 (TF32 tensor cores would keep ~10 mantissa bits),
-// and a bf16 slab is widened exactly (its 16 bits shifted into the top of
-// an f32).
+// entry never reads a mask. Queries are f32, or bf16 on a bf16 slab. Every
+// product is exact before it is summed in f32: an f32 slab stays at full
+// f32 (TF32 tensor cores would keep ~10 mantissa bits), a bf16 slab is
+// widened exactly (its 16 bits are the top of an f32), and on the tensor
+// cores f32 queries are split into three bf16 terms whose products with a
+// bf16 value are exact in f32.
 //
-// Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores)
-// at N = 65,536, D = 768: bytes N*D*s + Q*N*4 (+ N mask bytes) + the
-// queries and maxima, i.e. 205 MB at Q 16 on an f32 slab (61 us) and
-// 105 MB on a bf16 slab (31 us); arithmetic 2*Q*N*D = 1.6 GFLOP at Q 16
-// (24 us). Memory bounds every Q <= 16 on an f32 slab; on a bf16 slab at
-// Q 16 the f32 FMAs come close to the bytes.
+// Bound on the H100 (3.35 TB/s; 67 TFLOP/s f32 outside the tensor cores,
+// 989 bf16 on them) at N = 65,536, D = 768: bytes N*D*s + Q*N*4 (+ N mask
+// bytes) + the queries and maxima, i.e. 205 MB at Q 16 on an f32 slab (61
+// us) and 105 MB on a bf16 slab (31 us); arithmetic 2*Q*N*D = 1.6 GFLOP
+// at Q 16 (24 us in f32 FMA). Memory bounds every Q <= 16 on an f32 slab;
+// on a bf16 slab at Q 16 the f32 FMAs come close to the bytes. At Q 128 on
+// bench.py's bf16 shard (N 1,245,184) the bytes take 0.763 ms and the
+// product 0.247 ms a bf16 term on the tensor cores (3.7 ms in f32 FMA).
 //
-// Two bodies, chosen by shape in launch():
+// Three bodies, chosen by shape and type in launch():
 //
-// * Q <= 16, the serving path's query counts (the micro-batcher caps a
-//   batch at 16 and pads it to a power of two): a persistent stream.
+// * f32 queries, Q <= 16 (the serving path's query counts: the
+//   micro-batcher caps a batch at 16 by default and pads it to a power of
+//   two), either slab: a persistent stream.
 //   - One block of 8 warps per SM (SM count read once); block b owns the
 //     segments b, b + grid, ..., so no segment count limits the grid.
 //   - Each block streams its segments' [128 rows x 256 bytes] tiles (64
@@ -63,24 +68,75 @@
 //   FMA pipe runs at about half its rate there. More rows a thread would
 //   cut that, at the price of the partial-sum buffer or the ring.
 //
-// * Q > 16 (bench.py's batches; not on the serving path), or queries too
-//   large for shared memory: the first version's body, unchanged. One
-//   block owns one 128-row segment and a tile of 16 queries; the grid is
-//   (query tiles, segments), so at most 65,535 segments. The depth loop
-//   stages a [128 x 32] corpus tile and a [32 x 16] query tile in shared
-//   memory per step with no overlap of loads and compute; warp w owns
-//   queries 4w..4w+3 and lane l rows l, l+32, l+64, l+96, and each score
-//   is summed in depth order 0..D-1.
+// * Every other case on a bf16 slab (Q > 16 with f32 queries, bf16
+//   queries at any Q, or queries too large for the stream's shared
+//   memory): a persistent stream on the tensor cores (wgmma).
+//   - The product is wgmma.m64n128k16 bf16 x bf16 -> f32: A is 64 queries
+//     (one term), B the 128 rows of a segment, both K-major in shared
+//     memory in the 128-byte swizzle, 64 f32 accumulators a thread. bf16
+//     queries are one term; f32 queries are split by split_terms (launched
+//     first on the same stream, into the caller's scratch) into h, m, l,
+//     whose three products go into the same accumulators: three wgmmas a
+//     k-step, the function of the f32 body up to summation order.
+//   - A block is three warpgroups: a producer and two consumers. A unit
+//     is 128 queries x one segment, consumer w taking queries
+//     64w..64w+63, or at Q <= 64 64 queries x two segments, consumer w
+//     taking segment w. One block per SM owns the segment groups b,
+//     b + grid, ... and runs all query tiles of a group in turn, so the
+//     slab is read once from device memory at any Q (the group's rows come
+//     again from L2 for the later tiles), and no segment count limits the
+//     grid.
+//   - Loads: a ring of as many stages as fit, at most 6 (one term: 6 of
+//     32 KB or 5 of 40 KB; three terms: 3 of 64 KB or 4 of 56 KB), a stage
+//     being a 64-deep slice of the unit's corpus rows and of each term's
+//     query rows. One producer thread fills a stage with TMA copies (one
+//     for the corpus rows, one a term; tensor maps in the 128-byte
+//     swizzle, whose bounds give the zeros past D, N and Q) once both
+//     consumers have released it, and it runs ahead across unit
+//     boundaries, so the next unit's loads overlap this one's epilogue.
+//     Each stage has a full and an empty mbarrier in place of a block
+//     barrier; a wait of ~2 s traps, so a fault fails the launch instead
+//     of hanging the card.
+//   - Epilogue from the accumulators: -inf at freed slots (the segment's
+//     mask bytes read at its first stage, turned into per-row bits by four
+//     warp ballots), each query's max over the segment by two shuffles,
+//     the scores as 8-byte stores (8 lanes write a query's 32 contiguous
+//     bytes, whole sectors). Rows past Q are computed as zeros and not
+//     stored.
+//   What bounds it (H100, bench.py's shard): at Q 128 and one term the
+//   traffic with device memory, 1.9 GB of slab read and 0.64 GB of scores
+//   written at ~2.8 TB/s, 83% of the data sheet's rate; with three terms
+//   the tensor cores, at about 60% of their rate. The first version of
+//   this body filled the ring by cp.async from every thread, with a block
+//   barrier a stage; the producer warpgroup measured faster at every
+//   Q >= 128, most with three terms. Variants measured no faster: one
+//   wgmma group kept in flight across stages (slower at three terms), two
+//   segments a consumer at one term (slower at Q 512, where a unit's rows
+//   are re-read from L2 for each query tile), and, on the first version,
+//   units of 256 rows, stages of two 64-deep slices, the scores staged in
+//   shared memory and written by bulk copies, and two blocks an SM.
+//
+// * f32 queries on an f32 slab at Q > 16, or too large for the stream's
+//   shared memory: the first version's body, unchanged. One block owns one
+//   128-row segment and a tile of 16 queries; the grid is (query tiles,
+//   segments), so at most 65,535 segments. The depth loop stages a [128 x
+//   32] corpus tile and a [32 x 16] query tile in shared memory per step
+//   with no overlap of loads and compute; warp w owns queries 4w..4w+3 and
+//   lane l rows l, l+32, l+64, l+96, and each score is summed in depth
+//   order 0..D-1.
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch; 0 is success.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -108,25 +164,6 @@ __device__ __forceinline__ void load_corpus_tile(
     cs[r][c4 * 4 + 1] = v.y;
     cs[r][c4 * 4 + 2] = v.z;
     cs[r][c4 * 4 + 3] = v.w;
-  }
-}
-
-// bf16 slab: 16 bytes carry 8 values, widened exactly to f32.
-__device__ __forceinline__ void load_corpus_tile(
-    const __nv_bfloat16* __restrict__ corpus, int64_t row0, int k0, int D,
-    float (*cs)[BK + 1], int tid) {
-#pragma unroll
-  for (int j = 0; j < (SEG * BK / 8) / THREADS; ++j) {
-    const int f = tid + THREADS * j;
-    const int r = f >> 2;
-    const int c8 = f & 3;
-    const int col = k0 + c8 * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (col < D)
-      raw = *reinterpret_cast<const uint4*>(corpus + (row0 + r) * (int64_t)D + col);
-    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) cs[r][c8 * 8 + e] = __bfloat162float(b[e]);
   }
 }
 
@@ -222,22 +259,6 @@ constexpr int S_TILE = SEG * S_ROW_BYTES;        // bytes of one tile
 constexpr int S_RING = S_STAGES * S_TILE;
 constexpr int S_MAX_Q = 16;
 static_assert(S_CPR % S_GROUPS == 0 && SEG * S_CPR % S_THREADS == 0, "even splits of a tile");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // byte offset in a tile of 16-byte chunk c of row `row`. The XOR permutes
 // the chunks within each 128-byte bank line of a row: the 8 lanes of a
@@ -505,11 +526,374 @@ cudaError_t dispatch_stream(const void* queries, const void* corpus, const void*
 }
 
 // ---------------------------------------------------------------------------
+// Q > 16 on a bf16 slab, and bf16 queries at any Q: the tensor-core stream.
+
+constexpr int W_THREADS = 3 * 128;  // a producer warpgroup, two consumer warpgroups
+constexpr int W_BK = 64;            // depth a stage: one 128-byte row of bf16
+constexpr int W_ROW = 128;          // bytes of a staged row
+constexpr int W_QROWS = 64;         // queries a consumer: the wgmma's M
+
+// A unit is 128 QW queries x 256 / QW corpus rows: at QW = 2 one segment,
+// consumer w taking queries 64 w .. 64 w + 63 of it; at QW = 1 (Q <= 64)
+// two segments, consumer w taking segment w. A stage of the ring holds the
+// unit's corpus rows, then each term's query rows, 64 deep.
+__host__ __device__ constexpr int w_rows(int qw) { return 2 * SEG / qw; }
+
+__host__ __device__ constexpr int w_stage(int terms, int qw) {
+  return (w_rows(qw) + terms * W_QROWS * qw) * W_ROW;
+}
+
+// the stages that fit, at most 6, beside the ring's 1,024-byte alignment
+// and two mbarriers a stage: 6 of 32 KB or 5 of 40 KB for one term, 3 of
+// 64 KB or 4 of 56 KB for three
+constexpr int W_SMEM_MAX = 232448;  // all the shared memory an H100 block may have
+constexpr int W_RING_MAX = W_SMEM_MAX - 1024 - 6 * 16;
+
+__host__ __device__ constexpr int w_stages(int terms, int qw) {
+  return W_RING_MAX / w_stage(terms, qw) < 6 ? W_RING_MAX / w_stage(terms, qw) : 6;
+}
+
+__host__ __device__ constexpr int w_smem(int terms, int qw) {
+  return w_stages(terms, qw) * (w_stage(terms, qw) + 16) + 1024;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// the phase of this parity has completed; a wait of ~2 s traps (a fault
+// the launch reports, never a hung card)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > 4000000000LL) __trap();
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int x, int y, int z, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving a read or write of v across the wgmma asyncs
+__device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// matrix descriptor of a K-major tile of 128-byte rows in the 128-byte
+// swizzle (the layout TMA's SWIZZLE_128B writes): leading offset 16 bytes
+// (unused), 8-row groups 1,024 bytes apart, layout type 1 in bits 62-63.
+// The tile starts 1,024-byte aligned; a step of 16 values along K adds 32
+// bytes to the start address (the swizzle is applied to address bits).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d[64 x 128] += a[64 x 16] b[128 x 16]^T, bf16 operands from shared
+// memory, f32 accumulators; thread (warp w, lane 4 g + t) of the
+// warpgroup holds rows 16 w + g (d[4 j], d[4 j + 1]) and 16 w + g + 8
+// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t, 8 j + 2 t + 1
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// f32 queries as three bf16 terms: h = bf16(x), m = bf16(x - h),
+// l = bf16(x - h - m); each residual is exact in f32, and h + m + l = x for
+// every normal f32 x below 2^128 (1 - 2^-9), where bf16 rounding stays
+// finite. out holds term t of value i at t * count + i.
+__global__ void split_terms(const float* __restrict__ q, __nv_bfloat16* __restrict__ out, int count) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count; i += gridDim.x * blockDim.x) {
+    const float x = q[i];
+    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    const float r = x - __bfloat162float(h);
+    const __nv_bfloat16 m = __float2bfloat16_rn(r);
+    out[i] = h;
+    out[count + i] = m;
+    out[2 * count + i] = __float2bfloat16_rn(r - __bfloat162float(m));
+  }
+}
+
+// the epilogue of one warpgroup's 64 queries x one segment: -inf at freed
+// slots, the scores in 8-byte stores (8 lanes write a query's 32
+// contiguous bytes, whole sectors), each query's max over the 128 rows by
+// two shuffles across the 4 lanes that hold its row
+template <bool MASKED>
+__device__ __forceinline__ void wgmma_epilogue(const float (&acc)[64], uint32_t mword, int q0, int seg,
+                                               int Q, int N, int nseg, float* __restrict__ scores,
+                                               float* __restrict__ segmax, int t4) {
+  const int64_t row0 = (int64_t)seg * SEG;
+  // bit 2 j of live_e: row 8 j + 2 t4 + e of the segment is live. Row r is
+  // byte r % 4 of lane r / 4's mask word: ballot b_p has bit L for row
+  // 4 L + p, and r = 4 (2 j + (t4 >> 1)) + 2 (t4 & 1) + e.
+  uint32_t live0 = ~0u, live1 = ~0u;
+  if constexpr (MASKED) {
+    const uint32_t b0 = __ballot_sync(~0u, (mword & 0xffu) != 0);
+    const uint32_t b1 = __ballot_sync(~0u, (mword & 0xff00u) != 0);
+    const uint32_t b2 = __ballot_sync(~0u, (mword & 0xff0000u) != 0);
+    const uint32_t b3 = __ballot_sync(~0u, (mword & 0xff000000u) != 0);
+    live0 = ((t4 & 1) ? b2 : b0) >> (t4 >> 1);
+    live1 = ((t4 & 1) ? b3 : b1) >> (t4 >> 1);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = q0 + 8 * h;
+    float* out = scores + (int64_t)q * N + row0 + 2 * t4;
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (!((live0 >> (2 * j)) & 1u)) v.x = -CUDART_INF_F;
+      if (!((live1 >> (2 * j)) & 1u)) v.y = -CUDART_INF_F;
+      m = fmaxf(m, fmaxf(v.x, v.y));
+      if (q < Q) *reinterpret_cast<float2*>(out + 8 * j) = v;
+    }
+    m = fmaxf(m, __shfl_xor_sync(~0u, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(~0u, m, 2));
+    if (t4 == 0 && q < Q) segmax[(int64_t)q * nseg + seg] = m;
+  }
+}
+
+// T bf16 query terms ([T][Q][D], the tensor map tmap) x a bf16 slab (cmap),
+// in the units above: warpgroup 0 fills the ring (thread 0 issues each
+// stage's TMA copies once the consumers have freed it), warpgroups 1 and 2
+// compute; full / empty mbarriers a stage in place of a block barrier
+template <int T, int QW, bool MASKED>
+__global__ void __launch_bounds__(W_THREADS, 1)
+score_segmax_wgmma(const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap tmap,
+                   const uint8_t* __restrict__ mask, float* __restrict__ scores,
+                   float* __restrict__ segmax, int Q, int N, int D) {
+  constexpr int RC = w_rows(QW);     // corpus rows a unit
+  constexpr int SU = 2 / QW;         // segments a unit
+  constexpr int RQ = W_QROWS * QW;   // queries a unit
+  constexpr int STAGES = w_stages(T, QW);
+  constexpr int STAGE = w_stage(T, QW);
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  const uint32_t ring = (smem_addr(wsmem) + 1023) & ~1023u;  // the swizzle's 1,024-byte atoms
+  const uint32_t full = ring + STAGES * STAGE;               // a stage's copies have landed
+  const uint32_t empty = full + 8 * STAGES;                  // both consumers are done with it
+
+  const int tid = threadIdx.x;
+  const int nseg = N / SEG;
+  const int groups = (nseg + SU - 1) / SU;
+  const int nqt = (Q + RQ - 1) / RQ;
+  const int ktiles = (D + W_BK - 1) / W_BK;
+  // this block's units: segment groups blockIdx.x, + gridDim.x, ..., each
+  // with its query tiles in turn (the group's rows come again from L2 for
+  // the later tiles); tiles t = (unit * nqt + query tile) * ktiles + kt
+  const int mine = blockIdx.x < groups ? (groups - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = mine * nqt * ktiles;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid < 128) {  // the producer: zeros past D, N and Q come from the maps' bounds
+    if (tid == 0) {
+      int g = blockIdx.x, qt = 0, kt = 0;
+      for (int t = 0; t < total; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + 8 * s, ((t / STAGES) - 1) & 1);
+        const uint32_t dst = ring + s * STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, STAGE);
+        tma_load_2d(dst, &cmap, kt * W_BK, g * RC, bar);
+#pragma unroll
+        for (int term = 0; term < T; ++term)
+          tma_load_3d(dst + (RC + term * RQ) * W_ROW, &tmap, kt * W_BK, qt * RQ, term, bar);
+        if (++kt == ktiles) {
+          kt = 0;
+          if (++qt == nqt) {
+            qt = 0;
+            g += gridDim.x;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer: warpgroup wg's A (its 64 queries of term 0) and B (its 128
+  // corpus rows) in a stage, 64 f32 accumulators
+  const int wg = (tid >> 7) - 1;
+  const uint32_t a_off = (RC + (wg % QW) * W_QROWS) * W_ROW;
+  const int sub = wg / QW;  // its segment of the unit
+  const uint32_t b_off = sub * SEG * W_ROW;
+  const int lane = tid & 31, t4 = lane & 3;
+  const int qrow = (wg % QW) * W_QROWS + 16 * ((tid >> 5) & 3) + (lane >> 2);  // its rows qrow, qrow + 8
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  int g = blockIdx.x, qt = 0, kt = 0;
+  uint32_t mword = 0;  // mask bytes of rows 4 lane .. 4 lane + 3 of the segment
+  for (int t = 0; t < total; ++t) {
+    const int s = t % STAGES;
+    const int seg = SU * g + sub;  // this warpgroup's segment (uniform across it)
+    if (MASKED && kt == 0 && seg < nseg)  // read early: its latency hides behind the unit
+      mword = *reinterpret_cast<const uint32_t*>(mask + (int64_t)seg * SEG + 4 * lane);
+    mbar_wait(full + 8 * s, (t / STAGES) & 1);
+    const uint32_t st = ring + s * STAGE;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[i]);  // the zeroing before the fence
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < W_BK / 16; ++k16) {
+      const uint64_t b = sw128_desc(st + b_off + 32 * k16);
+#pragma unroll
+      for (int term = 0; term < T; ++term)
+        wgmma_m64n128k16(acc, sw128_desc(st + a_off + term * RQ * W_ROW + 32 * k16), b);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+    if ((tid & 127) == 0) mbar_arrive(empty + 8 * s);  // the warpgroup's products of stage t are done
+    if (++kt < ktiles) continue;
+
+    kt = 0;
+    if (seg < nseg)
+      wgmma_epilogue<MASKED>(acc, mword, qt * RQ + qrow, seg, Q, N, nseg, scores, segmax, t4);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    if (++qt == nqt) {
+      qt = 0;
+      g += gridDim.x;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static std::atomic<EncodeTiled> cached{nullptr};
+  EncodeTiled fn = cached.load();
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+    cached.store(fn);
+  }
+  return fn;
+}
+
+// a bf16 tensor of rank 2 ({D, rows}) or 3 ({D, rows, depth}), read in boxes
+// of 64 values x box_rows rows in the 128-byte swizzle; reads out of bounds
+// give zeros
+bool bf16_map(CUtensorMap* map, const void* base, int D, long long rows, int depth, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)W_BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int T, int QW, bool MASKED>
+cudaError_t launch_wgmma_body(const void* terms, const void* corpus, const void* mask, void* scores,
+                              void* segmax, int Q, int N, int D, int sms, cudaStream_t s) {
+  constexpr int smem = w_smem(T, QW);
+  CUtensorMap cmap, tmap;
+  if (!bf16_map(&cmap, corpus, D, N, 0, w_rows(QW)) || !bf16_map(&tmap, terms, D, Q, T, W_QROWS * QW))
+    return cudaErrorInvalidValue;
+  auto fn = score_segmax_wgmma<T, QW, MASKED>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int groups = (N / SEG + 2 / QW - 1) / (2 / QW);
+  const int grid = groups < 1 ? 1 : groups < sms ? groups : sms;
+  fn<<<grid, W_THREADS, smem, s>>>(cmap, tmap, static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
+                                 static_cast<float*>(segmax), Q, N, D);
+  return cudaGetLastError();
+}
+
+// bf16 queries are the one term; f32 queries are split into scratch
+// ([3][Q][D] bf16, from the caller) by split_terms on the same stream
+template <bool MASKED>
+cudaError_t launch_wgmma(const void* queries, int queries_bf16, void* scratch, const void* corpus,
+                         const void* mask, void* scores, void* segmax, int Q, int N, int D, int sms,
+                         cudaStream_t s) {
+  if (queries_bf16) {
+    if (Q <= W_QROWS)
+      return launch_wgmma_body<1, 1, MASKED>(queries, corpus, mask, scores, segmax, Q, N, D, sms, s);
+    return launch_wgmma_body<1, 2, MASKED>(queries, corpus, mask, scores, segmax, Q, N, D, sms, s);
+  }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int count = Q * D;
+  const int blocks = (count + 255) / 256 < 1024 ? (count + 255) / 256 : 1024;
+  split_terms<<<blocks, 256, 0, s>>>(static_cast<const float*>(queries),
+                                      static_cast<__nv_bfloat16*>(scratch), count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (Q <= W_QROWS)
+    return launch_wgmma_body<3, 1, MASKED>(scratch, corpus, mask, scores, segmax, Q, N, D, sms, s);
+  return launch_wgmma_body<3, 2, MASKED>(scratch, corpus, mask, scores, segmax, Q, N, D, sms, s);
+}
+
+// ---------------------------------------------------------------------------
 
 template <bool MASKED>
-int launch(const void* queries, const void* corpus, const void* mask,
-           void* scores, void* segmax, int Q, int N, int D, int corpus_bf16,
-           int device, void* stream) {
+int launch(const void* queries, const void* corpus, const void* mask, void* scores, void* segmax,
+           int Q, int N, int D, int corpus_bf16, int queries_bf16, void* scratch, int device,
+           void* stream) {
   if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -525,47 +909,47 @@ int launch(const void* queries, const void* corpus, const void* mask,
     lim.smem_optin.store(optin);
     lim.sms.store(sms);
   }
-  // the stream for the serving path's query counts, where its queries fit
+  // f32 queries at the serving path's query counts, where they fit: the stream
   const int smem = Q <= S_MAX_Q ? stream_smem(query_tile(Q), D, corpus_bf16 ? 2 : 4) : 0;
-  if (Q <= S_MAX_Q && smem <= lim.smem_optin.load()) {
+  if (!queries_bf16 && Q <= S_MAX_Q && smem <= lim.smem_optin.load()) {
     if (corpus_bf16)
       return (int)dispatch_stream<__nv_bfloat16, MASKED>(queries, corpus, mask, scores, segmax,
                                                          Q, N, D, smem, sms, s);
     return (int)dispatch_stream<float, MASKED>(queries, corpus, mask, scores, segmax, Q, N, D,
                                                smem, sms, s);
   }
+  // every other case on a bf16 slab: the tensor-core stream
+  if (corpus_bf16)
+    return (int)launch_wgmma<MASKED>(queries, queries_bf16, scratch, corpus, mask, scores, segmax,
+                                     Q, N, D, sms, s);
+  // an f32 slab takes f32 queries only, and its grid's y limits the segments
+  if (queries_bf16 || N / SEG > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((Q + BQ - 1) / BQ, N / SEG);
-  if (corpus_bf16) {
-    score_segmax_kernel<__nv_bfloat16, MASKED><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(queries),
-        static_cast<const __nv_bfloat16*>(corpus),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
-        static_cast<float*>(segmax), Q, N, D);
-  } else {
-    score_segmax_kernel<float, MASKED><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(queries), static_cast<const float*>(corpus),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
-        static_cast<float*>(segmax), Q, N, D);
-  }
+  score_segmax_kernel<float, MASKED><<<grid, THREADS, 0, s>>>(
+      static_cast<const float*>(queries), static_cast<const float*>(corpus),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
+      static_cast<float*>(segmax), Q, N, D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int score_segmax_masked(const void* queries, const void* corpus,
-                                   const void* mask, void* scores,
-                                   void* segmax, int Q, int N, int D,
-                                   int corpus_bf16, int device, void* stream) {
-  return launch<true>(queries, corpus, mask, scores, segmax, Q, N, D,
-                      corpus_bf16, device, stream);
+// queries [Q, D] f32 (or bf16 with a bf16 slab), corpus [N, D] f32 or
+// bf16, mask [N] bool, scores [Q, N] f32, segmax [Q, N / 128] f32; scratch
+// holds 3 Q D bf16 for f32 queries on a bf16 slab (unused otherwise).
+extern "C" int score_segmax_masked(const void* queries, const void* corpus, const void* mask,
+                                   void* scores, void* segmax, int Q, int N, int D,
+                                   int corpus_bf16, int queries_bf16, void* scratch, int device,
+                                   void* stream) {
+  return launch<true>(queries, corpus, mask, scores, segmax, Q, N, D, corpus_bf16, queries_bf16,
+                      scratch, device, stream);
 }
 
-extern "C" int score_segmax_unmasked(const void* queries, const void* corpus,
-                                     void* scores, void* segmax, int Q, int N,
-                                     int D, int corpus_bf16, int device,
-                                     void* stream) {
-  return launch<false>(queries, corpus, nullptr, scores, segmax, Q, N, D,
-                       corpus_bf16, device, stream);
+extern "C" int score_segmax_unmasked(const void* queries, const void* corpus, void* scores,
+                                     void* segmax, int Q, int N, int D, int corpus_bf16,
+                                     int queries_bf16, void* scratch, int device, void* stream) {
+  return launch<false>(queries, corpus, nullptr, scores, segmax, Q, N, D, corpus_bf16,
+                       queries_bf16, scratch, device, stream);
 }
 
 extern "C" const char* score_segmax_error_string(int err) {

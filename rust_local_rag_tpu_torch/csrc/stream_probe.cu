@@ -73,6 +73,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int TILE = 128;           // corpus rows a block, and the query tile
@@ -83,22 +85,6 @@ constexpr int STAGE_ELEMS = 2 * TILE * ROW;           // queries + corpus
 constexpr int STAGE_BYTES = STAGE_ELEMS * 2;          // 36,864
 constexpr int TS = TILE + 1;                          // epilogue row step (f32)
 constexpr int EPI_BYTES = (TILE * TS + 2 * TILE) * 4; // tile + two partial rows
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

@@ -1,9 +1,9 @@
 """Where the split pipeline's time goes, on the card (port of
 scripts/exp_split2.py): the segment-max kernel alone over resident scores
 (a), the library GEMM + segment max (b), the fused score + segment-max
-pass alone (c: stream_fused, the port's score_segmax_unmasked kernel, as
-the script's stream_fused computes the function of pallas_topk.py's
-fused_score_segmax) and with the selection (d).
+pass alone (c: stream_fused, the port's score_segmax_unmasked kernel on its
+tensor-core body, as the script's stream_fused computes the function of
+pallas_topk.py's fused_score_segmax) and with the selection (d).
 
     python -m rust_local_rag_tpu_torch.experiments.split2
 """
@@ -22,7 +22,7 @@ NT = N // SEG
 BLK = 2048
 PT = BLK // SEG
 NCH = N // BLK
-SCORE_TOL = 1e-4  # stream_fused's f32 FMA sums against the GEMM's, relative to the largest score
+SCORE_TOL = 1e-4  # stream_fused's tensor-core sums against the GEMM's, relative to the largest score
 
 
 def make_segmax(blkc: int, slots: int = 2):
@@ -36,9 +36,10 @@ def make_segmax(blkc: int, slots: int = 2):
 def stream_fused(queries, corpus):
     """(queries [Q, D] bf16, corpus [N, D] bf16) -> (scores [Q, N] f32,
     segmax [N/128, Q] f32) in one pass: the port's unmasked score +
-    segment-max kernel, which takes f32 queries (the bf16 ones widen
-    exactly); its [Q, N/128] maxima come back transposed, as the script's."""
-    scores, sm = fused_score_segmax(queries.float(), corpus)
+    segment-max kernel, given the bf16 queries as they are, so on the card
+    it runs its tensor-core body with one bf16 term (wgmma bf16 x bf16 ->
+    f32); its [Q, N/128] maxima come back transposed, as the script's."""
+    scores, sm = fused_score_segmax(queries, corpus)
     return scores, sm.T
 
 

@@ -58,8 +58,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _I32, _I64, _S = ctypes.c_int32, ctypes.c_int64, ctypes.c_char_p
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "score_segmax": {
-        "score_segmax_masked": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "score_segmax_unmasked": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "score_segmax_masked": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
+        "score_segmax_unmasked": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
         "score_segmax_error_string": (ctypes.c_char_p, [_I]),
     },
     "attention": {

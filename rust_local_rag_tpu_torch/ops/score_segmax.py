@@ -11,6 +11,13 @@ the kernels produce both in one pass over the corpus. The masked form puts
 freed slots. The segment maxima come back as [Q, N/128] (the JAX kernels'
 [N/128, Q] was a TPU store-alignment layout).
 
+Queries are f32, or bf16 on a bf16 slab. On the card f32 queries at
+Q <= 16 take the persistent CUDA-core stream; every other case on a bf16
+slab takes the tensor-core stream, which splits f32 queries into three
+bf16 terms (split_terms_plain is the same split in torch) and takes bf16
+queries as one; f32 queries on an f32 slab at Q > 16 take the first
+version's body, limited to 65,535 segments.
+
 score_segmax and fused_score_segmax launch their kernels for CUDA tensors
 and run the plain versions only for CPU tensors; there is no fallback from
 one to the other.
@@ -24,6 +31,7 @@ from rust_local_rag_tpu_torch.kernels import build
 from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
 
 SEG = 128  # segment size, rows per kernel block
+STREAM_MAX_Q = 16  # f32 queries up to this count take the CUDA-core stream
 
 
 def score_segmax_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: torch.Tensor):
@@ -40,6 +48,35 @@ def fused_score_segmax_plain(queries: torch.Tensor, corpus: torch.Tensor):
     """Plain version of the unmasked pass -> (scores [Q, N] f32,
     segmax [Q, N/128] f32)."""
     scores = torch.matmul(queries.float(), corpus.float().T)
+    return scores, scores.view(queries.shape[0], corpus.shape[0] // SEG, SEG).amax(dim=2)
+
+
+def split_terms_plain(queries: torch.Tensor) -> torch.Tensor:
+    """f32 queries [Q, D] -> their three bf16 terms [3, Q, D]: h = bf16(q),
+    m = bf16(q - h), l = bf16(q - h - m), each rounded to nearest even.
+    Each residual is exact in f32 and h + m + l == q for every normal f32
+    q below 2^128 (1 - 2^-9), where bf16 rounding stays finite, so each
+    term's product with a bf16 value is exact in f32 (8 x 8 significant
+    bits). The tensor-core body's split_terms does the same on the card."""
+    x = queries.float()
+    h = x.to(torch.bfloat16)
+    r = x - h.float()
+    m = r.to(torch.bfloat16)
+    return torch.stack((h, m, (r - m.float()).to(torch.bfloat16)))
+
+
+def score_segmax_terms_plain(queries: torch.Tensor, corpus: torch.Tensor, valid_mask=None):
+    """The tensor-core body's arithmetic in plain torch: f32 queries split
+    into three bf16 terms (bf16 queries are one), each term's exact product
+    with the widened bf16 slab summed in f32, then the mask and the segment
+    max -> (scores [Q, N] f32, segmax [Q, N/128] f32)."""
+    terms = queries[None] if queries.dtype == torch.bfloat16 else split_terms_plain(queries)
+    c = corpus.float().T
+    scores = torch.matmul(terms[0].float(), c)
+    for t in terms[1:]:
+        scores = scores + torch.matmul(t.float(), c)
+    if valid_mask is not None:
+        scores = torch.where(valid_mask[None, :], scores, float("-inf"))
     return scores, scores.view(queries.shape[0], corpus.shape[0] // SEG, SEG).amax(dim=2)
 
 
@@ -62,22 +99,36 @@ def _check(queries: torch.Tensor, corpus: torch.Tensor, valid_mask=None) -> None
         raise TypeError(f"score_segmax: mask must be bool, got {valid_mask.dtype}")
     if q < 1 or n % SEG:
         raise ValueError(f"score_segmax: need Q >= 1 and N % {SEG} == 0 (Q={q}, N={n})")
+    if corpus.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"score_segmax: corpus must be float32 or bfloat16, got {corpus.dtype}")
+    if queries.dtype != torch.float32 and not (
+        queries.dtype == torch.bfloat16 and corpus.dtype == torch.bfloat16
+    ):
+        raise TypeError(
+            f"score_segmax: queries must be float32, or bfloat16 on a bfloat16 slab "
+            f"(got {queries.dtype} on {corpus.dtype})"
+        )
     if dev.type == "cuda":
-        if queries.dtype != torch.float32:
-            raise TypeError(f"score_segmax: queries must be float32, got {queries.dtype}")
-        if corpus.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"score_segmax: corpus must be float32 or bfloat16, got {corpus.dtype}")
         if d % 8:
             raise ValueError(f"score_segmax: D must be a multiple of 8 (D={d})")
-        if n // SEG > 65535:
-            raise ValueError(f"score_segmax: at most {65535 * SEG} rows (N={n})")
+        if corpus.dtype == torch.float32 and q > STREAM_MAX_Q and n // SEG > 65535:
+            raise ValueError(f"score_segmax: at most {65535 * SEG} rows on an f32 slab at Q > 16 (N={n})")
         for name, t in zip(("queries", "corpus", "mask"), tensors):
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"score_segmax: {name} must be contiguous and 16-byte aligned")
 
 
+def _scratch(queries: torch.Tensor, corpus: torch.Tensor):
+    """The three bf16 terms' buffer the tensor-core body splits f32 queries
+    into on a bf16 slab (the kernel allocates nothing); None otherwise."""
+    if corpus.dtype == torch.bfloat16 and queries.dtype == torch.float32:
+        return torch.empty(3 * queries.numel(), dtype=torch.bfloat16, device=queries.device)
+    return None
+
+
 def score_segmax(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: torch.Tensor):
-    """queries [Q, D] f32, corpus [N, D] f32 or bf16, valid_mask [N] bool
+    """queries [Q, D] f32 (or bf16 on a bf16 slab), corpus [N, D] f32 or
+    bf16, valid_mask [N] bool
     -> (scores [Q, N] f32 with -inf at invalid slots, segmax [Q, N/128] f32).
 
     CUDA tensors launch the kernel (and count the launch in
@@ -93,10 +144,12 @@ def score_segmax(queries: torch.Tensor, corpus: torch.Tensor, valid_mask: torch.
     n = corpus.shape[0]
     scores = torch.empty((q, n), dtype=torch.float32, device=dev)
     segmax = torch.empty((q, n // SEG), dtype=torch.float32, device=dev)
+    scratch = _scratch(queries, corpus)
     err = lib.score_segmax_masked(
         queries.data_ptr(), corpus.data_ptr(), valid_mask.data_ptr(),
         scores.data_ptr(), segmax.data_ptr(), q, n, d,
-        int(corpus.dtype == torch.bfloat16), dev.index,
+        int(corpus.dtype == torch.bfloat16), int(queries.dtype == torch.bfloat16),
+        None if scratch is None else scratch.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -110,8 +163,8 @@ score_segmax.launches = 0
 
 
 def fused_score_segmax(queries: torch.Tensor, corpus: torch.Tensor):
-    """queries [Q, D] f32, corpus [N, D] f32 or bf16 -> (scores [Q, N] f32,
-    segmax [Q, N/128] f32), with no mask.
+    """queries [Q, D] f32 (or bf16 on a bf16 slab), corpus [N, D] f32 or
+    bf16 -> (scores [Q, N] f32, segmax [Q, N/128] f32), with no mask.
 
     CUDA tensors launch the kernel (and count the launch in
     ``fused_score_segmax.launches``); CPU tensors take
@@ -127,9 +180,11 @@ def fused_score_segmax(queries: torch.Tensor, corpus: torch.Tensor):
     n = corpus.shape[0]
     scores = torch.empty((q, n), dtype=torch.float32, device=dev)
     segmax = torch.empty((q, n // SEG), dtype=torch.float32, device=dev)
+    scratch = _scratch(queries, corpus)
     err = lib.score_segmax_unmasked(
         queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), segmax.data_ptr(),
-        q, n, d, int(corpus.dtype == torch.bfloat16), dev.index,
+        q, n, d, int(corpus.dtype == torch.bfloat16), int(queries.dtype == torch.bfloat16),
+        None if scratch is None else scratch.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -30,7 +30,7 @@ FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "scripts", "safetensors", "t
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "score_segmax_timing.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
