@@ -22,7 +22,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    every slot freed; then the tensor-core body on bf16 slabs at the same
    shapes and freed slots, with f32 queries (three bf16 terms) at Q 17,
    32, 64, 128, 129 and 512 and bf16 queries (one term) at those and Q 1
-   and 16; the attention kernel against attention_plain at every
+   and 16; the f32 FMA body on f32 slabs with f32 queries at Q 17, 32, 64,
+   128, 129 and 512 at the same shapes and freed slots; both entries at
+   Q 17 on an f32 slab of 65,537 segments (8,388,736 rows, 25.8 GB: one
+   past what a grid's y could hold), freed afterwards; the attention
+   kernel against attention_plain at every
    shape the path gives it (reranker causal H 6 L 192, encoder H 8 L 64 /
    256 / 512), with a length-1 row and an all-masked row, then at edge
    shapes (L 1, 17, 100, 257, 500, 512; B 1 and 3; causal and not) and,
@@ -52,7 +56,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    burst of 64 queries must run a Q 64 batch through the masked kernel's
    tensor-core body (launches counted), every batch equal to the plain
    hybrid path on a CPU copy; then 64-bursts timed through it and through
-   a batcher of max batch 16 on the same engine;
+   a batcher of max batch 16 on the same engine; f32_wide: the same on
+   the saved index's default f32 slab (RAG_TPU_CORPUS_DTYPE=f32), whose
+   Q 64 batch runs the masked kernel's f32 FMA body;
 5. the rerank-on lanes, with RAG_TPU_FUSED_ATTN=1 and the committed
    reranker: encoder_fused holds the encoder with the attention kernel
    against the encoder without it (1,024 ingest chunks and a query batch,
@@ -138,7 +144,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    them; the tensor-core body on bf16 slabs at Q 64 (N 65,536) and Q 128
    and 512 (N 1,245,184) with f32 and bf16 queries, beside one library
    GEMM to f32 + amax and, for f32 queries, the split terms' three bf16
-   GEMMs; then checked and timed at bench.py's shard, N 1,245,184, Q 16),
+   GEMMs; the f32 FMA body on f32 slabs at Q 64 and 512 (N 65,536) and
+   Q 128 (N 1,245,184), beside f32 mm (TF32 off) + amax; then checked and
+   timed at bench.py's shard, N 1,245,184, Q 16),
    and for attention also the span of a single call (host enqueue
    included, the measure of earlier runs) in one table; search latency
    per burst, rerank burst latency per lane and a stage breakdown; ingest
@@ -251,9 +259,19 @@ BF16_QUERY_Q = (1, 16) + WIDE_Q
 # the tensor-core body timed: the serving shape at a batch of 64
 # (RAG_TPU_BATCH_MAX=64), bench.py's shard at its Q 128 and 512
 WIDE_TIMES = ((64, 65536), (128, 1245184), (512, 1245184))
+# the f32 FMA body timed (f32 slab, f32 queries): a batch of 64, Q 512 at
+# the serving slab, bench.py's shard at Q 128 (Q 128 at N 65,536 is in TIME_Q)
+F32_WIDE_TIMES = ((64, 65536), (512, 65536), (128, 1245184))
+# an f32 slab of 65,537 segments (25.8 GB), one past a grid's y limit, at
+# the first Q past the stream
+N_BIG = 65537 * 128
+BIG_Q = 17
 WIDE_BATCH = 64  # bf16_wide: the batcher's max batch
 TIME_Q = (1, 2, 4, 8, 16, 128)
 N_BENCH = 1245184  # bench.py's 1,250,000-row shard cut to a multiple of 16,384
+# ~2 ms of the card's clock (1,980 MHz): the host enqueues a timed run of
+# calls meanwhile
+AHEAD_CYCLES = 4_000_000
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # bf16 tensor cores, dense, H100 SXM data sheet
@@ -473,6 +491,27 @@ def kernel_case(seed: int, q: int, dtype: torch.dtype, device, n: int = N_SLAB, 
     return queries.contiguous(), corpus32.to(dtype).contiguous(), mask
 
 
+def big_case(seed: int, q: int, n: int, d: int, device):
+    """kernel_case for a slab too large to build twice: unit f32 rows made
+    in place a chunk at a time; 10% of slots freed, the neighbours of each
+    query's source row, segment 1 and the last segment wholly."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    corpus = torch.empty(n, d, device=device)
+    for i in range(0, n, 1 << 20):
+        rows = corpus[i : i + (1 << 20)]
+        rows.normal_(generator=gen)
+        rows.div_(torch.linalg.vector_norm(rows, dim=1, keepdim=True))
+    src = torch.randint(0, n, (q,), generator=gen, device=device)
+    queries = corpus[src] + 0.05 * unit_rows(gen, q, d, device)
+    queries = queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+    mask = torch.rand(n, generator=gen, device=device) > 0.1
+    mask[(src + 1) % n] = False
+    mask[(src - 1) % n] = False
+    mask[SEG : 2 * SEG] = False
+    mask[n - SEG :] = False
+    return queries.contiguous(), corpus, mask
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b|, 0.0 over no elements (a slab with every slot freed)."""
     return float((a - b).abs().max()) if a.numel() else 0.0
@@ -625,7 +664,9 @@ def check_attention(q, k, v, mask, causal: bool) -> float:
 def cuda_ms(fn, reps: int = 7, calls: int = 10, warmup: int = 3) -> float:
     """Milliseconds a call of fn() takes on the card: events around a
     back-to-back run of `calls` calls, so the device time of one call is
-    not hidden behind the host's enqueue of the next; median over reps."""
+    not hidden behind the host's enqueue of the next; median over reps.
+    The card spins for AHEAD_CYCLES before the first event, so the host's
+    enqueue of the first call is not in the window either."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -633,6 +674,7 @@ def cuda_ms(fn, reps: int = 7, calls: int = 10, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(AHEAD_CYCLES)
         a.record()
         for _ in range(calls):
             fn()
@@ -726,29 +768,35 @@ def score_segmax_times(qs, corpus, mask, card: str, reps: int = 7, calls: int = 
 
 
 def wide_times(seed: int, dev, card: str) -> dict:
-    """The tensor-core body at WIDE_TIMES on bf16 slabs with f32 and bf16
-    queries (score_segmax_times). -> {(entry, Q, N, query dtype): row}."""
+    """The bodies past the stream (score_segmax_times): the tensor-core body
+    at WIDE_TIMES on bf16 slabs with f32 and bf16 queries, the f32 FMA body
+    at F32_WIDE_TIMES on f32 slabs. -> {(entry, Q, N, slab, query dtype): row}."""
     rows = {}
-    for q, n in WIDE_TIMES:
-        queries, corpus, mask = kernel_case(seed, q, torch.bfloat16, dev, n)
-        reps, calls = (7, 10) if n == N_SLAB else (5, 3)
-        for qdt in (torch.float32, torch.bfloat16):
-            for row in score_segmax_times(queries.to(qdt), corpus, mask, card, reps, calls):
-                rows[(row["kernel_time"], q, n, str(qdt))] = row
-        del queries, corpus, mask
-        torch.cuda.empty_cache()
+    for slab, shapes, qdts in ((torch.bfloat16, WIDE_TIMES, (torch.float32, torch.bfloat16)),
+                               (torch.float32, F32_WIDE_TIMES, (torch.float32,))):
+        for q, n in shapes:
+            queries, corpus, mask = kernel_case(seed, q, slab, dev, n)
+            reps, calls = (7, 10) if n == N_SLAB else (5, 3)
+            for qdt in qdts:
+                for row in score_segmax_times(queries.to(qdt), corpus, mask, card, reps, calls):
+                    rows[(row["kernel_time"], q, n, str(slab), str(qdt))] = row
+            del queries, corpus, mask
+            torch.cuda.empty_cache()
     return rows
 
 
-def bf16_wide(engine, dev, card: str, rng, probs, reps: int = 5) -> dict:
-    """Another engine over the saved index with RAG_TPU_CORPUS_DTYPE=bf16
-    behind a SearchBatcher of max batch WIDE_BATCH: one burst of
-    WIDE_BATCH queries, its batches (the kernel's tensor-core body at
-    Q 64) checked against the plain hybrid path on a CPU copy, then the
-    burst's latency beside the same engine behind a batcher of max batch
-    16 (median of reps after a warm-up)."""
+def wide_batch(engine, dev, card: str, rng, probs, slab: str, reps: int = 5) -> dict:
+    """Another engine over the saved index with RAG_TPU_CORPUS_DTYPE=slab
+    ("bf16" or "f32") behind a SearchBatcher of max batch WIDE_BATCH: one
+    burst of WIDE_BATCH queries, its batches (the masked kernel at Q 64: the
+    tensor-core body on bf16, the f32 FMA body on f32) checked against the
+    plain hybrid path on a CPU copy, then the burst's latency beside the
+    same engine behind a batcher of max batch 16 (median of reps after a
+    warm-up). Logged as the phase's name, f"{slab}_wide"."""
+    name = f"{slab}_wide"
+    want_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[slab]
     prev = os.environ.get("RAG_TPU_CORPUS_DTYPE")
-    os.environ["RAG_TPU_CORPUS_DTYPE"] = "bf16"
+    os.environ["RAG_TPU_CORPUS_DTYPE"] = slab
     try:
         wide = RagEngine(engine.data_dir, engine.embedding_service, device=dev)
     finally:
@@ -756,8 +804,8 @@ def bf16_wide(engine, dev, card: str, rng, probs, reps: int = 5) -> dict:
             os.environ.pop("RAG_TPU_CORPUS_DTYPE")
         else:
             os.environ["RAG_TPU_CORPUS_DTYPE"] = prev
-    if wide.store.corpus().dtype != torch.bfloat16 or len(wide.store) != len(engine.store):
-        raise AssertionError(f"bf16_wide: {wide.store.corpus().dtype} slab of {len(wide.store)} chunks")
+    if wide.store.corpus().dtype != want_dtype or len(wide.store) != len(engine.store):
+        raise AssertionError(f"{name}: {wide.store.corpus().dtype} slab of {len(wide.store)} chunks")
     wide.warmup()
     recorded = []
     dispatch = wide.dispatch_search
@@ -777,15 +825,15 @@ def bf16_wide(engine, dev, card: str, rng, probs, reps: int = 5) -> dict:
         launches = score_segmax.launches
         wide.dispatch_search = dispatch
         padded = [p.out.shape[0] for _, p in recorded]
-        log({"bf16_wide": "burst", "queries": len(burst), "batch_sizes": [len(qs) for qs, _ in recorded],
+        log({name: "burst", "queries": len(burst), "batch_sizes": [len(qs) for qs, _ in recorded],
              "kernel_q": padded, "launches": {"score_segmax_masked": launches}, "card": card})
         if launches <= 0 or WIDE_BATCH not in padded:
-            raise AssertionError(f"bf16_wide: launches {launches}, kernel batches {padded}: no Q {WIDE_BATCH} batch")
+            raise AssertionError(f"{name}: launches {launches}, kernel batches {padded}: no Q {WIDE_BATCH} batch")
         corpus_cpu = wide.store.corpus().cpu()
         mask_cpu = wide.store.valid_mask().cpu()
         for queries, pending in recorded:
             for q, want in zip(queries, plain_reference(pending, corpus_cpu, mask_cpu)):
-                same_topk(rows_of(answers[q], wide.store), want, SCORE_TOL, f"bf16_wide plain vs kernel {q!r}")
+                same_topk(rows_of(answers[q], wide.store), want, SCORE_TOL, f"{name} plain vs kernel {q!r}")
         latency = {}
         for max_batch, batcher in batchers.items():
             lat = []
@@ -797,7 +845,7 @@ def bf16_wide(engine, dev, card: str, rng, probs, reps: int = 5) -> dict:
                 if rep:  # the first burst is a warm-up
                     lat.append((time.perf_counter() - t0) * 1e3)
             latency[max_batch] = lat
-            log({"bf16_wide_burst": WIDE_BATCH, "max_batch": max_batch, "median_ms": statistics.median(lat),
+            log({f"{name}_burst": WIDE_BATCH, "max_batch": max_batch, "median_ms": statistics.median(lat),
                  "min_ms": min(lat), "max_ms": max(lat), "reps": reps, "card": card})
     finally:
         for batcher in batchers.values():
@@ -2600,23 +2648,35 @@ def main(argv=None) -> int:
                 max_err_unmasked = max(max_err_unmasked, *errs["fused_score_segmax"])
                 log({"kernel_edges": str(dtype), "N": n, "D": d, "Q": list(EDGE_Q), "max_abs_err": errs,
                      "tol": SCORE_TOL, "card": card})
-        # the tensor-core body: bf16 slabs with f32 queries past the stream
-        # and bf16 queries at any Q, each Q on its own data
-        for qdt, q_list in ((torch.float32, WIDE_Q), (torch.bfloat16, BF16_QUERY_Q)):
+        # past the stream: the tensor-core body on bf16 slabs with f32
+        # queries and bf16 queries at any Q, and the f32 FMA body on f32
+        # slabs, each Q on its own data
+        for slab, qdt, q_list in ((torch.bfloat16, torch.float32, WIDE_Q), (torch.bfloat16, torch.bfloat16,
+                                  BF16_QUERY_Q), (torch.float32, torch.float32, WIDE_Q)):
             for n, d in EDGE_SHAPES:
                 errs = {"score_segmax_masked": [], "fused_score_segmax": [], "all_freed": []}
                 for q in q_list:
-                    queries, corpus, mask = kernel_case(args.seed + q, q, torch.bfloat16, dev, n, d, freed="segment")
+                    queries, corpus, mask = kernel_case(args.seed + q, q, slab, dev, n, d, freed="segment")
                     queries = queries.to(qdt)
                     errs["score_segmax_masked"].append(check_kernel(queries, corpus, mask))
                     errs["fused_score_segmax"].append(check_unmasked(queries, corpus))
-                    queries, corpus, mask = kernel_case(args.seed + q, q, torch.bfloat16, dev, n, d, freed="all")
+                    queries, corpus, mask = kernel_case(args.seed + q, q, slab, dev, n, d, freed="all")
                     errs["all_freed"].append(check_kernel(queries.to(qdt), corpus, mask))
                     del queries, corpus, mask
                 max_err = max(max_err, *errs["score_segmax_masked"], *errs["all_freed"])
                 max_err_unmasked = max(max_err_unmasked, *errs["fused_score_segmax"])
-                log({"kernel_wide": "torch.bfloat16", "queries": str(qdt), "N": n, "D": d, "Q": list(q_list),
+                log({"kernel_wide": str(slab), "queries": str(qdt), "N": n, "D": d, "Q": list(q_list),
                      "max_abs_err": errs, "tol": SCORE_TOL, "card": card})
+        # an f32 slab of more segments than a grid's y could hold (the
+        # first version refused it at Q > 16), freed afterwards
+        queries, corpus, mask = big_case(args.seed, BIG_Q, N_BIG, DIM, dev)
+        errs = [check_kernel(queries, corpus, mask), check_unmasked(queries, corpus)]
+        max_err = max(max_err, errs[0])
+        max_err_unmasked = max(max_err_unmasked, errs[1])
+        log({"kernel_check": "past_grid_limit", "dtype": str(corpus.dtype), "Q": BIG_Q, "N": N_BIG, "D": DIM,
+             "segments": N_BIG // SEG, "max_abs_err": errs, "tol": SCORE_TOL, "card": card})
+        del queries, corpus, mask
+        torch.cuda.empty_cache()
         cases = ([(shape, False) for shape in ATTN_SHAPES + ATTN_EDGE]
                  + [(shape, True) for shape in ATTN_SCATTERED])
         for i, ((b, h, l, causal), scattered) in enumerate(cases):
@@ -2677,7 +2737,7 @@ def main(argv=None) -> int:
                  "bytes": flat.numel() * flat.element_size(), "card": card})
             del qs, corpus, mask, flat
         wide_rows = wide_times(args.seed, dev, card)
-        log({"wide_table": [{"entry": k[0], "Q": k[1], "N": k[2], "queries": k[3],
+        log({"wide_table": [{"entry": k[0], "Q": k[1], "N": k[2], "slab": k[3], "queries": k[4],
                              **{f: r[f] for f in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
                                                   "library_split_ms") if f in r}} for k, r in wide_rows.items()],
              "card": card})
@@ -2729,6 +2789,7 @@ def main(argv=None) -> int:
     log({"phase_seconds": seconds, "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
+                      "f32_wide": result["f32_wide"]["launches"],
                       "mmr": result["mmr"]["launches"],
                       **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()},
                       "http": srv["launches"]["score_segmax_masked"]}
@@ -2937,7 +2998,9 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             del engine2
 
         with phase("bf16_wide", card, seconds):
-            wide = bf16_wide(engine, dev, card, np.random.default_rng([args.seed, 11]), probs)
+            wide = wide_batch(engine, dev, card, np.random.default_rng([args.seed, 11]), probs, "bf16")
+        with phase("f32_wide", card, seconds):
+            f32_wide = wide_batch(engine, dev, card, np.random.default_rng([args.seed, 12]), probs, "f32")
 
         with phase("latency", card, seconds):
             latency = {}
@@ -2982,7 +3045,8 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
     padded = [p.out.shape[0] for _, p in recorded]
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
             "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
-            "lexical": lex_stats, "tokenizer": tok_stats, "server": server, "bf16_wide": wide}
+            "lexical": lex_stats, "tokenizer": tok_stats, "server": server, "bf16_wide": wide,
+            "f32_wide": f32_wide}
 
 
 if __name__ == "__main__":

@@ -116,14 +116,46 @@
 //   units of 256 rows, stages of two 64-deep slices, the scores staged in
 //   shared memory and written by bulk copies, and two blocks an SM.
 //
-// * f32 queries on an f32 slab at Q > 16, or too large for the stream's
-//   shared memory: the first version's body, unchanged. One block owns one
-//   128-row segment and a tile of 16 queries; the grid is (query tiles,
-//   segments), so at most 65,535 segments. The depth loop stages a [128 x
-//   32] corpus tile and a [32 x 16] query tile in shared memory per step
-//   with no overlap of loads and compute; warp w owns queries 4w..4w+3 and
-//   lane l rows l, l+32, l+64, l+96, and each score is summed in depth
-//   order 0..D-1.
+// * f32 queries on an f32 slab past the stream (Q > 16, or queries too
+//   large for its shared memory): a persistent register-tiled stream in f32
+//   FMA on the CUDA cores (no TF32, no bf16 split: an f32 slab stays f32).
+//   - A unit is two segments x 32 or 64 queries (Q <= 32, Q <= 64) or one
+//     segment x 128 queries, chosen by Q (template arguments RG, QPT). One
+//     block of 8 warps an SM owns the segment groups b, b + grid, ... and
+//     runs every query tile of a group in turn, so the rows come from device
+//     memory once (again from L2 for the later tiles) and no segment count
+//     limits the grid.
+//   - Loads: a ring in dynamic shared memory of 3 stages (2 for the 80 KB
+//     stage of two segments x 64 queries), a stage being the unit's rows
+//     and queries 64 deep (256 bytes a row), filled by 16-byte cp.async.cg
+//     copies from every thread (zero-filled past D, Q and N), one barrier a
+//     stage. The next stages are in flight while one is computed, across
+//     unit boundaries, so the next unit's loads overlap this one's epilogue.
+//   - Compute: lane l of warp w holds 8 rows, 4 tr .. 4 tr + 3 and 4 RG +
+//     those (tr = l % RG; RG 32 with two segments, 16 with one), and the
+//     QPT queries of its query group: 8 x QPT f32 accumulators, each summed
+//     in depth order (the order of the library's f32 GEMM: on the H100 the
+//     two agree bit for bit). Per 4-deep chunk a thread reads 8 row and
+//     QPT query values as 16-byte loads (K-major, chunks XOR-permuted so
+//     the row loads are conflict-free and the query loads broadcasts) and
+//     does 32 QPT FMAs: 256 per 16 loads at QPT 8, against 16 per 5 in the
+//     first version's body, which this replaces (one block a segment and 16
+//     queries, a grid limited to 65,535 segments, no load overlapped).
+//   - Epilogue from the accumulators: -inf at freed slots (4-byte mask
+//     loads, read at the unit's first stage), the scores as 16-byte stores
+//     (the RG lanes of a query group write 4 RG contiguous scores of a
+//     query), each query's max over its rows of a segment and then by
+//     shuffles across those lanes. Queries past Q are computed as zeros and
+//     not stored; a group's second segment past N is neither read nor
+//     stored.
+//   What bounds it: the f32 FMAs (2 Q N D at 67 TFLOP/s) from Q ~ 32 on
+//   (N 65,536, D 768: 0.096 ms at Q 64, 0.192 at Q 128, against 0.065 and
+//   0.070 ms of bytes). On the H100 (700 W) it reaches 57-61% of that
+//   rate at Q 64-128, within a few percent of the library's f32 GEMM
+//   (PERF.md). Variants measured slower on the card: 32-deep stages (4 of
+//   them), one segment x 4 rows a thread at Q <= 64, 4 rows x 16 queries
+//   at Q 128, and the FMAs as four outer products a chunk (fewer
+//   registers, the loads less far ahead).
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch; 0 is success.
@@ -140,110 +172,7 @@
 
 namespace {
 
-constexpr int SEG = 128;          // rows per segment == rows per block
-constexpr int BQ = 16;            // queries per block
-constexpr int BK = 32;            // depth per shared-memory step
-constexpr int THREADS = 128;      // 4 warps
-constexpr int QPT = BQ / (THREADS / 32);  // queries per warp (and thread): 4
-constexpr int RPT = SEG / 32;     // rows per lane: 4
-
-// [SEG x BK] corpus tile -> cs (f32), 8 threads per 128-byte row chunk.
-__device__ __forceinline__ void load_corpus_tile(
-    const float* __restrict__ corpus, int64_t row0, int k0, int D,
-    float (*cs)[BK + 1], int tid) {
-#pragma unroll
-  for (int j = 0; j < (SEG * BK / 4) / THREADS; ++j) {
-    const int f = tid + THREADS * j;
-    const int r = f >> 3;
-    const int c4 = f & 7;
-    const int col = k0 + c4 * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (col < D)
-      v = *reinterpret_cast<const float4*>(corpus + (row0 + r) * (int64_t)D + col);
-    cs[r][c4 * 4 + 0] = v.x;
-    cs[r][c4 * 4 + 1] = v.y;
-    cs[r][c4 * 4 + 2] = v.z;
-    cs[r][c4 * 4 + 3] = v.w;
-  }
-}
-
-template <typename T, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
-score_segmax_kernel(const float* __restrict__ queries,
-                           const T* __restrict__ corpus,
-                           const uint8_t* __restrict__ mask,
-                           float* __restrict__ scores,
-                           float* __restrict__ segmax,
-                           int Q, int N, int D) {
-  __shared__ float cs[SEG][BK + 1];            // +1: conflict-free row reads
-  __shared__ __align__(16) float qs[BK][BQ];   // transposed query tile
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int seg = blockIdx.y;
-  const int64_t row0 = (int64_t)seg * SEG;
-
-  float acc[QPT][RPT];
-#pragma unroll
-  for (int j = 0; j < QPT; ++j)
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[j][r] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    load_corpus_tile(corpus, row0, k0, D, cs, tid);
-    {
-      // [BQ x BK] query tile: one float4 per thread, zeros past Q or D
-      const int qi = tid >> 3;
-      const int c4 = tid & 7;
-      const int col = k0 + c4 * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + qi < Q && col < D)
-        v = *reinterpret_cast<const float4*>(queries + (int64_t)(q0 + qi) * D + col);
-      qs[c4 * 4 + 0][qi] = v.x;
-      qs[c4 * 4 + 1][qi] = v.y;
-      qs[c4 * 4 + 2][qi] = v.z;
-      qs[c4 * 4 + 3][qi] = v.w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qs[kk][warp * QPT]);
-      float c[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) c[r] = cs[lane + 32 * r][kk];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        acc[0][r] = fmaf(qv.x, c[r], acc[0][r]);
-        acc[1][r] = fmaf(qv.y, c[r], acc[1][r]);
-        acc[2][r] = fmaf(qv.z, c[r], acc[2][r]);
-        acc[3][r] = fmaf(qv.w, c[r], acc[3][r]);
-      }
-    }
-    __syncthreads();
-  }
-
-  bool live[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) live[r] = !MASKED || mask[row0 + lane + 32 * r] != 0;
-  const int nseg = N / SEG;
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    const int q = q0 + warp * QPT + j;  // uniform across the warp
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float v = live[r] ? acc[j][r] : -CUDART_INF_F;
-      if (q < Q) scores[(int64_t)q * N + row0 + lane + 32 * r] = v;
-      m = fmaxf(m, v);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0 && q < Q) segmax[(int64_t)q * nseg + seg] = m;
-  }
-}
+constexpr int SEG = 128;  // rows of a segment
 
 // ---------------------------------------------------------------------------
 // Q <= 16: the persistent stream.
@@ -546,8 +475,8 @@ __host__ __device__ constexpr int w_stage(int terms, int qw) {
 // the stages that fit, at most 6, beside the ring's 1,024-byte alignment
 // and two mbarriers a stage: 6 of 32 KB or 5 of 40 KB for one term, 3 of
 // 64 KB or 4 of 56 KB for three
-constexpr int W_SMEM_MAX = 232448;  // all the shared memory an H100 block may have
-constexpr int W_RING_MAX = W_SMEM_MAX - 1024 - 6 * 16;
+constexpr int SMEM_MAX = 232448;  // all the shared memory an H100 block may have
+constexpr int W_RING_MAX = SMEM_MAX - 1024 - 6 * 16;
 
 __host__ __device__ constexpr int w_stages(int terms, int qw) {
   return W_RING_MAX / w_stage(terms, qw) < 6 ? W_RING_MAX / w_stage(terms, qw) : 6;
@@ -889,6 +818,233 @@ cudaError_t launch_wgmma(const void* queries, int queries_bf16, void* scratch, c
 }
 
 // ---------------------------------------------------------------------------
+// f32 queries on an f32 slab past the stream: the register-tiled body.
+
+constexpr int T_THREADS = 256;      // 8 warps, one block an SM
+constexpr int T_BK = 64;            // depth a stage: 256 bytes of each staged row
+constexpr int T_ROW = T_BK * 4;     // bytes of a staged row
+constexpr int T_CPR = T_ROW / 16;   // 16-byte chunks of a staged row
+
+// Lane l of warp w is row group tr = l % RG (RG 16 or 32) and query group
+// tq = w (32 / RG) + l / RG; it holds 8 rows, 4 tr .. 4 tr + 3 and 4 RG +
+// those, and QPT queries. A unit is 8 RG rows (one segment at RG 16, two at
+// RG 32) x a tile of (T_THREADS / RG) QPT queries; a stage holds its rows,
+// then its queries, T_BK deep, and the ring as many stages as fit, at most 3.
+__host__ __device__ constexpr int t_rows(int rg) { return 8 * rg; }
+__host__ __device__ constexpr int t_queries(int rg, int qpt) { return T_THREADS / rg * qpt; }
+__host__ __device__ constexpr int t_stage(int rg, int qpt) { return (t_rows(rg) + t_queries(rg, qpt)) * T_ROW; }
+__host__ __device__ constexpr int t_stages(int rg, int qpt) {
+  return SMEM_MAX / t_stage(rg, qpt) < 3 ? SMEM_MAX / t_stage(rg, qpt) : 3;
+}
+__host__ __device__ constexpr int t_smem(int rg, int qpt) { return t_stages(rg, qpt) * t_stage(rg, qpt); }
+
+// byte offset in a stage of chunk c of unit row `row`. The XOR permutes
+// each 128-byte half of a row by bits 2-4 of the row: the 8 lanes of a load
+// phase read rows 4 i + k (+ 4 RG) for 8 consecutive i, whose (row >> 2) & 7
+// differ, so they hit 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int t_row_offset(int row, int c) {
+  return row * T_ROW + ((c ^ ((row >> 2) & 7)) << 4);
+}
+
+// byte offset of chunk c of query j of group g of the tile (after the
+// unit's UR rows): permuted by the group, so where a warp reads two groups
+// (the same chunk of two rows, broadcast to 16 lanes each) they hit two
+// bank groups
+template <int UR, int QPT>
+__device__ __forceinline__ int t_query_offset(int g, int j, int c) {
+  return (UR + QPT * g + j) * T_ROW + ((c ^ (g & 7)) << 4);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// f32 queries x an f32 slab in f32 FMA: block b owns the units' segment
+// groups b, b + grid, ... and runs every query tile of a group in turn (its
+// rows come from device memory once, again from L2 for the later tiles).
+// All threads fill the ring by cp.async, one barrier a stage. 8 x QPT f32
+// accumulators a thread, each summed in depth order.
+template <bool MASKED, int RG, int QPT>
+__global__ void __launch_bounds__(T_THREADS, 1)
+score_segmax_tile(const float* __restrict__ queries, const float* __restrict__ corpus,
+                  const uint8_t* __restrict__ mask, float* __restrict__ scores,
+                  float* __restrict__ segmax, int Q, int N, int D) {
+  constexpr int UR = t_rows(RG);              // rows of a unit
+  constexpr int SU = UR / SEG;                // segments of a unit
+  constexpr int QT = t_queries(RG, QPT);
+  constexpr int STAGE = t_stage(RG, QPT);
+  constexpr int STAGES = t_stages(RG, QPT);
+  constexpr int RPJ = T_THREADS / T_CPR;      // staged rows a copy step covers: 16
+  constexpr int STEPS = (UR + QT) / RPJ;      // copy steps a stage; the first UR / RPJ take corpus rows
+  static_assert(RG == 16 || RG == 32, "rows 4 tr + k + 4 RG h, a thread's permutation tr & 7");
+  static_assert(UR % SEG == 0 && QT % RPJ == 0 && STAGES >= 2, "whole segments, copy steps and a ring");
+  extern __shared__ __align__(16) unsigned char tsmem[];
+  const uint32_t ring = smem_addr(tsmem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int nseg = N / SEG;
+  const int groups = (nseg + SU - 1) / SU;
+  const int nqt = (Q + QT - 1) / QT;
+  const int ktiles = (D + T_BK - 1) / T_BK;
+  // stages t = (i * nqt + query tile) * ktiles + kt for this block's i-th group
+  const int total = blockIdx.x < groups ? ((groups - 1 - blockIdx.x) / gridDim.x + 1) * nqt * ktiles : 0;
+
+  // copies: thread tid takes chunk pc of the staged rows prow + RPJ j
+  const int pc = tid % T_CPR;
+  const int prow = tid / T_CPR;
+  int p_grp = blockIdx.x, p_qt = 0, p_kt = 0, issued = 0;
+  auto issue = [&]() {
+    if (issued < total) {
+      const int k0 = p_kt * T_BK + pc * 4;
+      const bool in_d = k0 < D;  // D % 4 == 0: a chunk is all in or out
+      const uint32_t dst = ring + (issued % STAGES) * STAGE;
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        if (j < UR / RPJ) {
+          const int row = prow + RPJ * j;
+          const int64_t n = (int64_t)p_grp * UR + row;
+          const bool ok = in_d && n < N;  // zeros past D, and past N in a group's missing segment
+          cp_async16(dst + t_row_offset(row, pc), ok ? corpus + n * D + k0 : corpus, ok ? 16 : 0);
+        } else {
+          const int i = prow + RPJ * j - UR;
+          const int q = p_qt * QT + i;
+          const bool ok = in_d && q < Q;  // zeros past D and Q
+          cp_async16(dst + t_query_offset<UR, QPT>(i / QPT, i % QPT, pc),
+                     ok ? queries + (int64_t)q * D + k0 : queries, ok ? 16 : 0);
+        }
+      }
+      if (++p_kt == ktiles) {
+        p_kt = 0;
+        if (++p_qt == nqt) {
+          p_qt = 0;
+          p_grp += gridDim.x;
+        }
+      }
+    }
+    ++issued;
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue();
+
+  const int tr = lane % RG;
+  const int tq = (tid >> 5) * (32 / RG) + lane / RG;
+  float acc[8][QPT];  // acc[4 h + k][j]: unit row 4 RG h + 4 tr + k, query QPT tq + j
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) acc[r][j] = 0.f;
+
+  int grp = blockIdx.x, qt = 0, kt = 0;
+  uint32_t mw[2] = {~0u, ~0u};  // mask bytes of rows 4 tr .. 4 tr + 3 (+ 4 RG h)
+  for (int t = 0; t < total; ++t) {
+    if (MASKED && kt == 0) {  // read early: its latency hides behind the unit
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t n = (int64_t)grp * UR + 4 * RG * h + 4 * tr;
+        if (n < N) mw[h] = *reinterpret_cast<const uint32_t*>(mask + n);
+      }
+    }
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage t are done
+    __syncthreads();              // everyone's are, and stage t - 1 is free
+    issue();                      // stage t + STAGES - 1 into stage t - 1's slot
+    const unsigned char* st = tsmem + (t % STAGES) * STAGE;
+    // per 16-byte chunk (4 deep): QPT query loads and 8 row loads, each
+    // broadcast or conflict-free, then 32 QPT FMAs, each accumulator's
+    // four in a row (an order that let ptxas keep the next chunk's loads
+    // in flight: faster than four outer products at Q >= 64). The offsets
+    // are t_query_offset(tq, j, c) and t_row_offset(4 RG h + 4 tr + k, c),
+    // whose permutations are tq & 7 and tr & 7 for every j, h and k
+#pragma unroll
+    for (int c = 0; c < T_CPR; ++c) {
+      const unsigned char* qs = st + t_query_offset<UR, QPT>(tq, 0, c);
+      const unsigned char* cs = st + t_row_offset(4 * tr, c);
+      float4 qv[QPT], cv[8];
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) qv[j] = *reinterpret_cast<const float4*>(qs + j * T_ROW);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        cv[r] = *reinterpret_cast<const float4*>(cs + (4 * RG * (r >> 2) + (r & 3)) * T_ROW);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < QPT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][j] = fmaf(lane_of(cv[r], e), lane_of(qv[j], e), acc[r][j]);
+    }
+    if (++kt < ktiles) continue;
+
+    // the unit is complete: -inf at freed slots, the scores in 16-byte
+    // stores (RG lanes write 4 RG contiguous scores of a query), and each
+    // query's max over each segment: over the thread's rows in it, then
+    // across the RG lanes
+    kt = 0;
+    bool live[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) live[r] = !MASKED || ((mw[r >> 2] >> (8 * (r & 3))) & 0xffu) != 0;
+    const int64_t row0 = (int64_t)grp * UR + 4 * tr;
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const int q = qt * QT + QPT * tq + j;  // uniform across the RG lanes
+#pragma unroll
+      for (int su = 0; su < SU; ++su) {
+        constexpr int HPS = 2 / SU;  // row quads a thread holds in one segment
+        float m = -CUDART_INF_F;
+#pragma unroll
+        for (int h = su * HPS; h < (su + 1) * HPS; ++h) {
+          float4 v;
+          v.x = live[4 * h] ? acc[4 * h][j] : -CUDART_INF_F;
+          v.y = live[4 * h + 1] ? acc[4 * h + 1][j] : -CUDART_INF_F;
+          v.z = live[4 * h + 2] ? acc[4 * h + 2][j] : -CUDART_INF_F;
+          v.w = live[4 * h + 3] ? acc[4 * h + 3][j] : -CUDART_INF_F;
+          m = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+          if (q < Q && row0 + 4 * RG * h < N)
+            *reinterpret_cast<float4*>(scores + (int64_t)q * N + row0 + 4 * RG * h) = v;
+        }
+#pragma unroll
+        for (int off = 1; off < RG; off <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        const int seg = grp * SU + su;
+        if (tr == 0 && q < Q && seg < nseg) segmax[(int64_t)q * nseg + seg] = m;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[r][j] = 0.f;
+    }
+    if (++qt == nqt) {
+      qt = 0;
+      grp += gridDim.x;
+    }
+  }
+}
+
+template <bool MASKED, int RG, int QPT>
+cudaError_t launch_tile_body(const void* queries, const void* corpus, const void* mask, void* scores,
+                             void* segmax, int Q, int N, int D, int sms, cudaStream_t s) {
+  constexpr int smem = t_smem(RG, QPT);
+  auto fn = score_segmax_tile<MASKED, RG, QPT>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int su = t_rows(RG) / SEG;
+  const int groups = (N / SEG + su - 1) / su;
+  const int grid = groups < 1 ? 1 : groups < sms ? groups : sms;
+  fn<<<grid, T_THREADS, smem, s>>>(static_cast<const float*>(queries), static_cast<const float*>(corpus),
+                                   static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
+                                   static_cast<float*>(segmax), Q, N, D);
+  return cudaGetLastError();
+}
+
+// the unit by Q: two segments x 32 or 64 queries, one segment x 128
+template <bool MASKED>
+cudaError_t launch_tile(const void* queries, const void* corpus, const void* mask, void* scores, void* segmax,
+                        int Q, int N, int D, int sms, cudaStream_t s) {
+  if (Q <= t_queries(32, 4))
+    return launch_tile_body<MASKED, 32, 4>(queries, corpus, mask, scores, segmax, Q, N, D, sms, s);
+  if (Q <= t_queries(32, 8))
+    return launch_tile_body<MASKED, 32, 8>(queries, corpus, mask, scores, segmax, Q, N, D, sms, s);
+  return launch_tile_body<MASKED, 16, 8>(queries, corpus, mask, scores, segmax, Q, N, D, sms, s);
+}
+
+// ---------------------------------------------------------------------------
 
 template <bool MASKED>
 int launch(const void* queries, const void* corpus, const void* mask, void* scores, void* segmax,
@@ -922,14 +1078,9 @@ int launch(const void* queries, const void* corpus, const void* mask, void* scor
   if (corpus_bf16)
     return (int)launch_wgmma<MASKED>(queries, queries_bf16, scratch, corpus, mask, scores, segmax,
                                      Q, N, D, sms, s);
-  // an f32 slab takes f32 queries only, and its grid's y limits the segments
-  if (queries_bf16 || N / SEG > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Q + BQ - 1) / BQ, N / SEG);
-  score_segmax_kernel<float, MASKED><<<grid, THREADS, 0, s>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(corpus),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(scores),
-      static_cast<float*>(segmax), Q, N, D);
-  return (int)cudaGetLastError();
+  // every other case on an f32 slab (f32 queries only): the register tile
+  if (queries_bf16) return (int)cudaErrorInvalidValue;
+  return (int)launch_tile<MASKED>(queries, corpus, mask, scores, segmax, Q, N, D, sms, s);
 }
 
 }  // namespace

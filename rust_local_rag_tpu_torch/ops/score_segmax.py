@@ -15,8 +15,9 @@ Queries are f32, or bf16 on a bf16 slab. On the card f32 queries at
 Q <= 16 take the persistent CUDA-core stream; every other case on a bf16
 slab takes the tensor-core stream, which splits f32 queries into three
 bf16 terms (split_terms_plain is the same split in torch) and takes bf16
-queries as one; f32 queries on an f32 slab at Q > 16 take the first
-version's body, limited to 65,535 segments.
+queries as one; f32 queries on an f32 slab at Q > 16 take the register-
+tiled f32 FMA body (query tiles of 32, 64 or 128). Every body runs a
+persistent grid, so no segment count is refused.
 
 score_segmax and fused_score_segmax launch their kernels for CUDA tensors
 and run the plain versions only for CPU tensors; there is no fallback from
@@ -111,8 +112,6 @@ def _check(queries: torch.Tensor, corpus: torch.Tensor, valid_mask=None) -> None
     if dev.type == "cuda":
         if d % 8:
             raise ValueError(f"score_segmax: D must be a multiple of 8 (D={d})")
-        if corpus.dtype == torch.float32 and q > STREAM_MAX_Q and n // SEG > 65535:
-            raise ValueError(f"score_segmax: at most {65535 * SEG} rows on an f32 slab at Q > 16 (N={n})")
         for name, t in zip(("queries", "corpus", "mask"), tensors):
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"score_segmax: {name} must be contiguous and 16-byte aligned")

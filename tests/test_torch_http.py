@@ -8,7 +8,9 @@ the same status and the same parsed body.
 Normalised before comparing: chunk ids and job ids (uuid4, drawn anew by
 each server), MCP session ids, and the clock fields of a job. Scores may
 differ within 1e-6: the last-bit FMA difference of the blend (ROADMAP C5)
-and the serializer's 7 fractional digits against json.dumps' repr."""
+and the serializer's 7 fractional digits against json.dumps' repr; the
+judged and object lanes' score, a quotient by the query's largest initial
+score, within 1e-6 of its normaliser (score_tol, ROADMAP C10)."""
 
 import asyncio
 import json
@@ -267,14 +269,30 @@ def parsed(status, headers, body):
     return status, norm(body.decode("utf-8", "replace"))
 
 
-def assert_same(a, b, path="$"):
+def score_tol(row) -> float:
+    """The tolerance of a result row's "score" (row: the JAX server's).
+
+    The judged and object lanes (the rows that carry a reranker_score)
+    divide the initial score by the query's largest initial score, so a
+    last-bit difference of the dense plane reaches score multiplied by
+    |score / initial_score| (init_w / vmax, or the initial term's share
+    of it): SCORE_TOL is held in units of that normaliser. Every other
+    field, and the hot and MMR rows, keep SCORE_TOL."""
+    init = row.get("initial_score")
+    if "reranker_score" not in row or not isinstance(init, (int, float)) or init == 0:
+        return SCORE_TOL
+    return SCORE_TOL * max(1.0, abs(row["score"] / init))
+
+
+def assert_same(a, b, path="$", tol=SCORE_TOL):
+    """a (the port's answer) equals b (the JAX server's), floats within tol."""
     if isinstance(a, float) or isinstance(b, float):
         assert isinstance(a, (int, float)) and isinstance(b, (int, float)), f"{path}: {a!r} != {b!r}"
-        assert abs(a - b) <= SCORE_TOL, f"{path}: {a!r} != {b!r}"
+        assert abs(a - b) <= tol, f"{path}: {a!r} != {b!r} (tolerance {tol:g})"
     elif isinstance(a, dict):
         assert isinstance(b, dict) and set(a) == set(b), f"{path}: keys {sorted(a)} != {sorted(b)}"
         for k in a:
-            assert_same(a[k], b[k], f"{path}.{k}")
+            assert_same(a[k], b[k], f"{path}.{k}", score_tol(b) if k == "score" else SCORE_TOL)
     elif isinstance(a, (list, tuple)):
         assert isinstance(b, (list, tuple)) and len(a) == len(b), f"{path}: {a!r} != {b!r}"
         for i, (x, y) in enumerate(zip(a, b)):
