@@ -129,14 +129,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (exact), the streaming score + segment-max kernel in every layout,
    seg and operand order (scores within 1e-4 of the largest plain score,
    maxima exactly those of its own scores), the resident-block dot probe
-   (within 1e-4, every chunk identical) and the read probe (exact) against
+   (within 1e-4, every chunk identical; at Q 1, 17, 64, 128, blk 2,048,
+   4,096, 16,384, natural on and off, slots 2 and 4, and at small shapes:
+   D 64 and 1,472, Q 65 and 100, 3 chunks) and the
+   read probe (exact) against
    their plain versions, the split pipeline against torch.topk over the
    same scores, and split2.stream_fused (the unmasked kernel's tensor-core
    body with bf16 queries) against the GEMM's scores and its selection
    against torch.topk; experiments runs every sweep of every module's main
    with the launch counts set to 0 just before and read just after;
    experiments_times times each new kernel, its plain version and a
-   library call beside its bound;
+   library call beside its bound, and fails unless the dot probe takes at
+   least 1.8 times as long at N 1,245,184 as at N 622,592 (every chunk's
+   product is computed);
 8. times (CUDA events around a back-to-back run of calls, after a
    warm-up, median of repeats, per call): each kernel, its plain version
    and a library call against the bound (score + segment-max at Q 1, 2,
@@ -230,6 +235,7 @@ from rust_local_rag_tpu_torch.ops.segmax import segmax, segmax_plain
 from rust_local_rag_tpu_torch.ops.stream_probe import (
     read_probe,
     read_probe_plain,
+    resident_dot_feed_bytes,
     resident_dot_plain,
     resident_dot_segmax,
     stream_segmax,
@@ -291,7 +297,24 @@ STREAM_SOURCE = "rust_local_rag_tpu_torch/csrc/stream_probe.cu"
 SEGMAX_REPLACES = "scripts/exp_split_pipeline.py:30"
 STREAM_REPLACES = "scripts/exp_stream_kernel.py:27"
 PROBE_REPLACES = "scripts/exp_dma_probe.py:19"
+RESIDENT_SOURCE = "rust_local_rag_tpu_torch/csrc/resident_dot.cu"
 RESIDENT_REPLACES = "scripts/exp_isolate_kernel.py:34"
+# the dot probe's cases (Q, blk, natural, slots) at N_BENCH, D 768: its
+# query halves (Q 1, 17 inside one, 64 one whole, 128 two), blk as the
+# experiments set it (2,048, 4,096, 16,384), both operand orders and two
+# ring depths; and small shapes (Q, N, D, blk, natural): D 64 (one stage a
+# product), the largest D the kernel takes (a ring of two stages), a second
+# query half of one query, and 3 or 1 chunks (a unit's last chunks not stored)
+RESIDENT_CASES = ((128, 2048, False, 2), (128, 4096, False, 2), (128, 4096, True, 2), (1, 2048, False, 2),
+                  (17, 2048, True, 2), (64, 2048, False, 2), (64, 2048, True, 2), (128, 4096, False, 4),
+                  (128, 16384, False, 2), (128, 16384, True, 4))
+RESIDENT_SMALL = ((128, 8192, 64, 2048, False), (128, 8192, 64, 2048, True), (128, 8192, 64, 8192, False),
+                  (100, 8192, 1472, 2048, False), (100, 8192, 1472, 2048, True), (65, 6144, 768, 2048, True),
+                  (65, 6144, 768, 2048, False))
+# the dot probe timed below a query half's 64 (beside Q 128)
+RESIDENT_SMALL_Q = (1, 17, 64)
+# the dot probe's time must scale with N: every chunk's product computed
+RESIDENT_WORK_RATIO = 1.8
 EXPERIMENTS = (split_pipeline, split2, stream_kernel, isolate_kernel, isolate2, dma_probe)
 # the product kernels against f32 GEMMs of the same exact bf16 products:
 # max |kernel - plain| over the largest |plain| score
@@ -2474,17 +2497,22 @@ def experiments_check(seed: int, dev, card: str) -> dict:
         del s, m
     del p_scores, p_sm64, ref
     # K4: block 0's maxima for every chunk, identical down the output
-    for blk, natural in ((2048, False), (4096, False), (4096, True)):
-        got = resident_dot_segmax(qs, corpus, blk, natural)
-        want = resident_dot_plain(qs, corpus, blk)
-        per = blk // 128
-        same = torch.equal(got, got[:per].repeat(n // blk, 1))
+    small = [(exp_common.normal_bf16((nq, dd), seed + 23, dev), blk, natural, 2,
+              exp_common.normal_bf16((nn, dd), seed + 22, dev)) for nq, nn, dd, blk, natural in RESIDENT_SMALL]
+    for qq, blk, natural, slots, c in [(qs[:nq], blk, nat, sl, corpus) for nq, blk, nat, sl in RESIDENT_CASES] + small:
+        (nq, dd), qq = qq.shape, qq.contiguous()
+        got = resident_dot_segmax(qq, c, blk, natural, slots)
+        want = resident_dot_plain(qq, c, blk)
+        per, nn = blk // 128, c.shape[0]
+        same = torch.equal(got, got[:per].repeat(nn // blk, 1))
         err = rel_err(got, want)
         errs["resident_dot_segmax"] = max(errs["resident_dot_segmax"], float((got - want).abs().max()))
-        log({"kernel_check": "resident_dot_segmax", "blk": blk, "natural": natural, "rel_err": err,
-             "chunks_identical": same, "tol": EXP_REL_TOL, "card": card})
+        log({"kernel_check": "resident_dot_segmax", "Q": nq, "N": nn, "D": dd, "blk": blk, "natural": natural,
+             "slots": slots, "rel_err": err, "chunks_identical": same, "tol": EXP_REL_TOL, "card": card})
         if not same or err > EXP_REL_TOL:
-            raise AssertionError(f"resident_dot_segmax blk={blk} natural={natural}: {err}, identical {same}")
+            raise AssertionError(f"resident_dot_segmax Q={nq} N={nn} D={dd} blk={blk} natural={natural} "
+                                 f"slots={slots}: {err}, identical {same}")
+    del small
     # K3: a copy and integer sums, exact
     for blk, slots, static in ((2048, 2, False), (8192, 2, True), (2048, 16, True), (16384, 4, True)):
         heads, sums = read_probe(corpus, blk, 128, slots, static)
@@ -2523,12 +2551,16 @@ EXP_COUNTERS = {"segmax": segmax, "stream_segmax": stream_segmax, "read_probe": 
 
 def run_experiments(dev) -> dict:
     """Every sweep of every experiment module's main, with the launch counts
-    set to 0 just before and read just after. -> {kernel: launches}."""
+    set to 0 just before and read just after (and each module's share
+    printed). -> {kernel: launches}."""
     for fn in EXP_COUNTERS.values():
         fn.launches = 0
     for mod in EXPERIMENTS:
         log(f"-- python -m {mod.__name__}")
+        before = {name: fn.launches for name, fn in EXP_COUNTERS.items()}
         mod.main(device=dev)
+        log({"launches": {name: fn.launches - before[name] for name, fn in EXP_COUNTERS.items()},
+             "module": mod.__name__})
     launches = {name: fn.launches for name, fn in EXP_COUNTERS.items()}
     log({"launches": launches, "path": "experiments"})
     if min(launches.values()) <= 0:
@@ -2540,6 +2572,72 @@ def exp_bound(nbytes: float, ops: float = 0.0):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def resident_library(qs, corpus, blk: int, n: int):
+    """K4's function through cuBLAS: every chunk's product of the queries
+    and block 0 as one bmm of the stride-0 expansions to f32 scores
+    [N/blk, Q, blk], then each segment's amax, put into [N/128, Q]."""
+    q, d = qs.shape
+    nch, blk0 = n // blk, corpus[:blk]
+    s = torch.bmm(qs.expand(nch, q, d), blk0.mT.expand(nch, d, blk), out_dtype=torch.float32)
+    return s.view(nch, q, blk // 128, 128).amax(-1).transpose(1, 2).reshape(n // 128, q)
+
+
+def resident_times(qs, corpus, row, rows: dict, card: str) -> None:
+    """K4 at the experiments' blk 2,048 and 4,096 (natural off and on): its
+    bound by the operations of the products it issues (all N Q D of them)
+    beside the old reckoning (block 0 read once, the output written, one
+    block's product), the library line (whose f32 scores are checked not to
+    be a copy of the expansions), the share of the bf16 peak and the bytes
+    L2 fed it a second; then the work check: the same call at N/2."""
+    q, d = qs.shape
+    n = corpus.shape[0]
+    sms = torch.cuda.get_device_properties(qs.device).multi_processor_count
+
+    def nbytes(blk):  # block 0 and the queries read once, the maxima written once
+        return blk * d * 2 + q * d * 2 + (n // 128) * q * 4
+
+    torch.cuda.reset_peak_memory_stats(qs.device)
+    base = torch.cuda.memory_allocated(qs.device)
+    lib = resident_library(qs, corpus, 4096, n)
+    extra = torch.cuda.max_memory_allocated(qs.device) - base
+    want = resident_dot_plain(qs, corpus, 4096)
+    log({"library_check": "resident_dot_segmax", "call": "bmm of the stride-0 expansions + amax", "blk": 4096,
+         "rel_err": rel_err(lib, want), "peak_extra_bytes": extra, "scores_bytes": q * n * 4,
+         "expansions_if_copied_bytes": (n // 4096) * (q + 4096) * d * 2, "card": card})
+    if rel_err(lib, want) > EXP_REL_TOL:
+        raise AssertionError("resident_dot_segmax's library line disagrees with the plain version")
+    del lib, want
+    for blk, natural in ((4096, False), (2048, False), (4096, True), (2048, True)):
+        name = "resident_dot_segmax" if (blk, natural) == (4096, False) else f"resident_dot_segmax blk {blk}" + (
+            " natural" if natural else "")
+        row(name, f"blk {blk}, natural {natural}, slots 2",
+            lambda: resident_dot_segmax(qs, corpus, blk, natural), lambda: resident_dot_plain(qs, corpus, blk),
+            lambda: resident_library(qs, corpus, blk, n), exp_bound(nbytes(blk), 2 * q * n * d))
+        r = rows[name]
+        r["output_bound_ms"] = exp_bound(nbytes(blk), 2 * q * blk * d)[0]
+        r["bf16_peak_share"] = 2 * q * n * d / H100_BF16_FLOPS * 1e3 / r["ms"]
+        r["l2_feed_bytes"] = resident_dot_feed_bytes(q, n, d, blk, sms)
+        r["l2_feed_TBps"] = r["l2_feed_bytes"] / r["ms"] * 1e-9
+        log({"kernel_time_extra": name, **{k: r[k] for k in ("output_bound_ms", "bf16_peak_share", "l2_feed_bytes",
+                                                             "l2_feed_TBps")}, "card": card})
+    for nq in RESIDENT_SMALL_Q:  # a block's 64-query half, whatever part of it Q fills
+        qq = qs[:nq].contiguous()
+        name = f"resident_dot_segmax Q {nq}"
+        row(name, f"Q {nq}, blk 2048, natural False, slots 2", lambda: resident_dot_segmax(qq, corpus, 2048),
+            lambda: resident_dot_plain(qq, corpus, 2048), lambda: resident_library(qq, corpus, 2048, n),
+            exp_bound(2048 * d * 2 + nq * d * 2 + (n // 128) * nq * 4, 2 * nq * n * d), nq)
+        r = rows[name]
+        r["bf16_peak_share"] = 2 * nq * n * d / H100_BF16_FLOPS * 1e3 / r["ms"]
+        log({"kernel_time_extra": name, "bf16_peak_share": r["bf16_peak_share"], "card": card})
+    full = rows["resident_dot_segmax"]["ms"]
+    half = cuda_ms(lambda: resident_dot_segmax(qs, corpus[:n // 2], 4096), reps=5, calls=5)
+    log({"work_check": "resident_dot_segmax", "blk": 4096, "Q": q, "N": n, "ms": full, "N_half": n // 2,
+         "half_ms": half, "ratio": full / half, "limit": RESIDENT_WORK_RATIO, "card": card})
+    if full / half < RESIDENT_WORK_RATIO:
+        raise AssertionError(f"resident_dot_segmax: {full} ms at N {n} against {half} at N {n // 2}: "
+                             f"a ratio under {RESIDENT_WORK_RATIO}")
 
 
 def experiments_times(seed: int, dev, card: str) -> dict:
@@ -2554,9 +2652,9 @@ def experiments_times(seed: int, dev, card: str) -> dict:
     slab = n * d * 2
     rows = {}
 
-    def row(name, setting, kernel, plain, library, bound):
+    def row(name, setting, kernel, plain, library, bound, nq=q):
         b_ms, b_by = bound
-        r = {"kernel_time": name, "setting": setting, "Q": q, "N": n, "D": d, "ms": cuda_ms(kernel, reps=5, calls=5),
+        r = {"kernel_time": name, "setting": setting, "Q": nq, "N": n, "D": d, "ms": cuda_ms(kernel, reps=5, calls=5),
              "plain_ms": cuda_ms(plain, reps=3, calls=2),
              "library_ms": None if library is None else cuda_ms(library, reps=5, calls=5),
              "bound_ms": b_ms, "bound_by": b_by, "card": card}
@@ -2576,9 +2674,7 @@ def experiments_times(seed: int, dev, card: str) -> dict:
         exp_bound(slab + q * d * 2 + (n // 128) * q * 4, 2 * q * n * d))
     row("read_probe", "blk 8192, slots 2, static", lambda: read_probe(corpus, 8192, 128, 2, True),
         lambda: read_probe_plain(corpus, 8192, 128), None, exp_bound(slab + (n // 8192) * (128 * 4 + 8)))
-    row("resident_dot_segmax", "blk 4096", lambda: resident_dot_segmax(qs, corpus, 4096),
-        lambda: resident_dot_plain(qs, corpus, 4096), None,
-        exp_bound(4096 * d * 2 + q * d * 2 + (n // 128) * q * 4, 2 * q * 4096 * d))
+    resident_times(qs, corpus, row, rows, card)
     row("stream_fused", "split2.stream_fused: the unmasked kernel's tensor-core body, bf16 queries and slab",
         lambda: split2.stream_fused(qs, corpus), lambda: fused_score_segmax_plain(qs, corpus),
         lambda: exp_common.gemm_scores(qs, corpus).view(q, n // 128, 128).amax(dim=2),
@@ -2871,7 +2967,7 @@ def main(argv=None) -> int:
         ("segmax", SEGMAX_SOURCE, SEGMAX_REPLACES),
         ("stream_segmax", STREAM_SOURCE, STREAM_REPLACES),
         ("read_probe", STREAM_SOURCE, PROBE_REPLACES),
-        ("resident_dot_segmax", STREAM_SOURCE, RESIDENT_REPLACES),
+        ("resident_dot_segmax", RESIDENT_SOURCE, RESIDENT_REPLACES),
     )]]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

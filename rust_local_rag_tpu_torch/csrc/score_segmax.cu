@@ -169,6 +169,7 @@
 #include <atomic>
 
 #include "async_copy.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -486,95 +487,6 @@ __host__ __device__ constexpr int w_smem(int terms, int qw) {
   return w_stages(terms, qw) * (w_stage(terms, qw) + 16) + 1024;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// the phase of this parity has completed; a wait of ~2 s traps (a fault
-// the launch reports, never a hung card)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > 4000000000LL) __trap();
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int x, int y, int z, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving a read or write of v across the wgmma asyncs
-__device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"(v)::"memory"); }
-
-// matrix descriptor of a K-major tile of 128-byte rows in the 128-byte
-// swizzle (the layout TMA's SWIZZLE_128B writes): leading offset 16 bytes
-// (unused), 8-row groups 1,024 bytes apart, layout type 1 in bits 62-63.
-// The tile starts 1,024-byte aligned; a step of 16 values along K adds 32
-// bytes to the start address (the swizzle is applied to address bits).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// d[64 x 128] += a[64 x 16] b[128 x 16]^T, bf16 operands from shared
-// memory, f32 accumulators; thread (warp w, lane 4 g + t) of the
-// warpgroup holds rows 16 w + g (d[4 j], d[4 j + 1]) and 16 w + g + 8
-// (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t, 8 j + 2 t + 1
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // f32 queries as three bf16 terms: h = bf16(x), m = bf16(x - h),
 // l = bf16(x - h - m); each residual is exact in f32, and h + m + l = x for
 // every normal f32 x below 2^128 (1 - 2^-9), where bf16 rounding stays
@@ -741,40 +653,6 @@ score_segmax_wgmma(const __grid_constant__ CUtensorMap cmap, const __grid_consta
       g += gridDim.x;
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static std::atomic<EncodeTiled> cached{nullptr};
-  EncodeTiled fn = cached.load();
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-    cached.store(fn);
-  }
-  return fn;
-}
-
-// a bf16 tensor of rank 2 ({D, rows}) or 3 ({D, rows, depth}), read in boxes
-// of 64 values x box_rows rows in the 128-byte swizzle; reads out of bounds
-// give zeros
-bool bf16_map(CUtensorMap* map, const void* base, int D, long long rows, int depth, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)W_BK, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth > 0 ? 3 : 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int T, int QW, bool MASKED>

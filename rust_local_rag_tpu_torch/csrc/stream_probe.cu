@@ -1,7 +1,8 @@
-// The streaming score + segment-max kernel and its two probes, for sm_90a:
+// The streaming score + segment-max kernel and its read probe, for sm_90a:
 // the hand-written counterparts of the TPU kernels in the exact top-k
 // experiments (scripts/exp_stream_kernel.py, exp_isolate_kernel.py,
-// exp_isolate2.py, exp_dma_probe.py).
+// exp_isolate2.py, exp_dma_probe.py). The third kernel of those
+// experiments, K4 (the isolation probes' "dot" mode), is resident_dot.cu.
 //
 // K2  stream_segmax: queries [Q, D] bf16 (Q <= 128) x corpus [N, D] bf16 ->
 //       segmax[t, q] = max over segment t (seg 64 or 128 rows) of
@@ -11,14 +12,6 @@
 //     (exp_stream_kernel.py:27-119: [Q, N] or, transposed, [N, Q] scores
 //     + segmax) and the "both" mode of make (exp_isolate_kernel.py:34-99,
 //     exp_isolate2.py:17-79: segmax only, no score write).
-// K4  resident_dot_segmax: the "dot" mode of the same two makes. The TPU
-//     copied corpus block 0 (blk rows) into VMEM once and ran the dot and
-//     segment max on it for each of the N / blk chunks, so the output is
-//     block 0's segment maxima repeated for every chunk:
-//       out[i * blk / 128 + p, q] = segmax of block 0's segment p.
-//     Here every 128-row tile t reads corpus rows (128 t) mod blk, which
-//     stay in the 50 MB L2 (blk <= 16,384 rows is 25 MB), so the device
-//     memory sees block 0 once and the tensor cores see all N rows.
 // K3  read_probe: the "dma" modes (exp_isolate_kernel.py:76-80,
 //     exp_isolate2.py:59-60) and make (exp_dma_probe.py:19-64), which
 //     stream the [N, D] slab and keep only the first row of a chunk:
@@ -33,9 +26,9 @@
 // cores) at N 1,245,184, D 768, Q 128: the slab is 1.913 GB (0.571 ms);
 // the [Q, N] or [N, Q] f32 scores add 0.638 GB (0.763 ms in all); the
 // product is 2 Q N D = 245 GFLOP (0.247 ms). K2 and K3 are bound by
-// bytes; K4 reads blk D 2 bytes once and is bound by its operations.
+// bytes.
 //
-// Design of K2 / K4 (mma.sync.m16n8k16 bf16 -> f32: bf16 products are
+// Design of K2 (mma.sync.m16n8k16 bf16 -> f32: bf16 products are
 // exact in f32, so this is the TPU's arithmetic up to summation order):
 // * One block of 8 warps takes a 128-row corpus tile and all queries
 //   (zero rows past Q) and walks the depth in steps of 64 through a ring
@@ -54,8 +47,7 @@
 //   either layout.
 // * The TPU's blk (rows a DMA step) has no counterpart in K2: a block's
 //   step is its 128-row tile (the TPU's 2,048-16,384-row steps are 3-25
-//   MB, against 227 KB of shared memory); K4 keeps it as the resident
-//   block's size, which the output depends on.
+//   MB, against 227 KB of shared memory).
 //
 // Design of K3: block b reads its tile of 256 x 16 x U contiguous bytes
 // (U = slots: 1, 2, 4, 8 or 16), one 16-byte load a thread for each of U
@@ -118,19 +110,17 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* st, const __nv_bfloat1
   }
 }
 
-// LAYOUT: 0 no scores, 1 [Q, N], 2 [N, Q]. RESIDENT: corpus rows
-// (128 t) mod resident_rows for tile t (K4).
-template <int SEG, int LAYOUT, bool NATURAL, bool RESIDENT, int STAGES>
+// LAYOUT: 0 no scores, 1 [Q, N], 2 [N, Q]
+template <int SEG, int LAYOUT, bool NATURAL, int STAGES>
 __global__ void __launch_bounds__(THREADS, 2)
     stream_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ c,
-                  float* __restrict__ scores, float* __restrict__ segmax, int Q, int64_t N, int D,
-                  int64_t resident_rows) {
+                  float* __restrict__ scores, float* __restrict__ segmax, int Q, int64_t N, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 x 32 each
   const int64_t tile = blockIdx.x;
-  const int64_t row0 = RESIDENT ? (tile * TILE) % resident_rows : tile * TILE;
+  const int64_t row0 = tile * TILE;
   const int nk = D / BK;
 
   float acc[4][4][4];
@@ -227,24 +217,22 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 using StreamFn = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, float*, float*, int, int64_t,
-                          int, int64_t);
+                          int);
 
-template <int SEG, int LAYOUT, bool NATURAL, bool RESIDENT>
+template <int SEG, int LAYOUT, bool NATURAL>
 StreamFn pick_stages(int stages) {
-  return stages == 2 ? stream_kernel<SEG, LAYOUT, NATURAL, RESIDENT, 2>
-                     : stream_kernel<SEG, LAYOUT, NATURAL, RESIDENT, 4>;
+  return stages == 2 ? stream_kernel<SEG, LAYOUT, NATURAL, 2> : stream_kernel<SEG, LAYOUT, NATURAL, 4>;
 }
 
 template <int SEG, bool NATURAL>
 StreamFn pick_layout(int layout, int stages) {
-  return layout == 0   ? pick_stages<SEG, 0, NATURAL, false>(stages)
-         : layout == 1 ? pick_stages<SEG, 1, NATURAL, false>(stages)
-                       : pick_stages<SEG, 2, NATURAL, false>(stages);
+  return layout == 0   ? pick_stages<SEG, 0, NATURAL>(stages)
+         : layout == 1 ? pick_stages<SEG, 1, NATURAL>(stages)
+                       : pick_stages<SEG, 2, NATURAL>(stages);
 }
 
 cudaError_t launch_stream(StreamFn fn, int stages, const void* q, const void* c, void* scores,
-                          void* segmax, int Q, long long N, int D, long long resident_rows,
-                          int device, void* stream) {
+                          void* segmax, int Q, long long N, int D, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int smem = stages * STAGE_BYTES > EPI_BYTES ? stages * STAGE_BYTES : EPI_BYTES;
@@ -252,7 +240,7 @@ cudaError_t launch_stream(StreamFn fn, int stages, const void* q, const void* c,
   if (err != cudaSuccess) return err;
   fn<<<static_cast<unsigned>(N / TILE), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(c),
-      static_cast<float*>(scores), static_cast<float*>(segmax), Q, N, D, resident_rows);
+      static_cast<float*>(scores), static_cast<float*>(segmax), Q, N, D);
   return cudaGetLastError();
 }
 
@@ -338,18 +326,7 @@ extern "C" int stream_segmax(const void* q, const void* c, void* scores, void* s
                                       : pick_layout<128, false>(layout, stages))
                            : (natural ? pick_layout<64, true>(layout, stages)
                                       : pick_layout<64, false>(layout, stages));
-  return (int)launch_stream(fn, stages, q, c, scores, segmax, Q, N, D, N, device, stream);
-}
-
-// K4. As K2 with no scores, seg 128, every 128-row tile t reading corpus
-// rows (128 t) mod blk: out [N / 128, Q]. The corpus needs only blk rows
-// (blk % 128 == 0); N is the length the output covers.
-extern "C" int resident_dot_segmax(const void* q, const void* c, void* segmax, int Q, long long N,
-                                   int D, long long blk, int natural, int stages, int device,
-                                   void* stream) {
-  if (!stream_shape_ok(Q, N, D, 128, stages) || blk < TILE || blk % TILE) return (int)cudaErrorInvalidValue;
-  StreamFn fn = natural ? pick_stages<128, 0, true, true>(stages) : pick_stages<128, 0, false, true>(stages);
-  return (int)launch_stream(fn, stages, q, c, nullptr, segmax, Q, N, D, blk, device, stream);
+  return (int)launch_stream(fn, stages, q, c, scores, segmax, Q, N, D, device, stream);
 }
 
 // K3. corpus [N, D] bf16 (contiguous, 16-byte aligned), chunks of blk

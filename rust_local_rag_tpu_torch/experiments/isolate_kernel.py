@@ -9,14 +9,17 @@ ablated modes.
         and the int64 sums of each chunk's bf16 bit patterns, which make
         every byte's read show.
   dot   the product and segment max of corpus block 0 (BLK rows, resident
-        in L2) for every chunk (resident_dot_segmax): the floor of the
-        product alone; [N/128, Q], block 0's maxima repeated.
+        in L2; the queries resident in shared memory) for every chunk
+        (resident_dot_segmax, csrc/resident_dot.cu: wgmma): the floor of
+        the product alone; [N/128, Q], block 0's maxima repeated, each
+        chunk's from its own product.
   both  product + streaming, segment maxima only, no score write
         (stream_segmax with no scores): [N/128, Q].
 
-`slots` (the TPU's DMA ring depth) is the kernels' cp.async stages (2 for
-slots <= 2, else 4) for dot and both, and the loads a thread keeps in
-flight for dma, walked as a runtime loop, as the script's fori_loop was.
+`slots` (the TPU's DMA ring depth) is the kernel's cp.async stages (2 for
+slots <= 2, else 4) for both, the depth of the TMA ring (4 slots stages,
+as many as fit) for dot, and the loads a thread keeps in flight for dma,
+walked as a runtime loop, as the script's fori_loop was.
 
     python -m rust_local_rag_tpu_torch.experiments.isolate_kernel
 """

@@ -72,9 +72,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "stream_probe": {
         "stream_segmax": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P]),
-        "resident_dot_segmax": (_I, [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
         "read_probe": (_I, [_P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
         "stream_probe_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "resident_dot": {
+        "resident_dot_segmax": (_I, [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
+        "resident_dot_error_string": (ctypes.c_char_p, [_I]),
     },
     "lexical": {
         "bm25_create": (_P, []),

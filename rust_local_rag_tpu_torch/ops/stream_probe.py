@@ -1,5 +1,6 @@
 """The streaming score + segment-max kernel and its read and dot probes: the
-CUDA kernels of csrc/stream_probe.cu and their plain PyTorch versions.
+CUDA kernels of csrc/stream_probe.cu (K2, K3) and csrc/resident_dot.cu (K4)
+and their plain PyTorch versions.
 
 Ports of the TPU kernels of the exact top-k experiments (bf16 queries
 [Q, D] and slab [N, D], f32 scores, segments of 64 or 128 rows):
@@ -12,7 +13,9 @@ Ports of the TPU kernels of the exact top-k experiments (bf16 queries
                         or not at all;
   resident_dot_segmax   the "dot" mode of the same makes: corpus block 0
                         (blk rows) scored again for every chunk, so its
-                        segment maxima repeat down the [N/128, Q] output;
+                        segment maxima repeat down the [N/128, Q] output
+                        (every chunk's product is computed: the probe
+                        times the tensor cores);
   read_probe            the "dma" modes and make
                         (scripts/exp_dma_probe.py:19-64): stream the slab,
                         keep the first `width` values of each chunk's
@@ -24,7 +27,7 @@ Ports of the TPU kernels of the exact top-k experiments (bf16 queries
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; there is no fallback from one to the other.
 The TPU kernels' knobs (slots, static, natural) are carried to the card as
-csrc/stream_probe.cu says; none changes the result.
+the two sources say; none changes the result.
 """
 
 from __future__ import annotations
@@ -37,6 +40,11 @@ TILE = 128      # corpus rows a kernel block; the most queries a launch takes
 DEPTH = 64      # D must be a multiple of it on the card
 ROW_BLOCK = 65536  # slab rows the plain versions widen to f32 at a time
 LAYOUTS = {"none": 0, "qn": 1, "nq": 2}
+# K4 keeps a block's 64-query half (D x 128 bytes) in shared memory beside
+# a ring of at least two 16 KB stages (csrc/resident_dot.cu)
+RESIDENT_MAX_D = 1472
+RESIDENT_QUERIES = 64   # queries a K4 block holds
+RESIDENT_CHUNKS = 4     # chunks a K4 row tile fetched from L2 feeds
 
 
 def scores_f32(queries: torch.Tensor, corpus: torch.Tensor, rows: int = ROW_BLOCK) -> torch.Tensor:
@@ -102,9 +110,9 @@ def _check_stream(queries, corpus, seg: int, slots: int, what: str) -> None:
         raise ValueError(f"{what}: the kernel takes 1 <= Q <= {TILE} and D % {DEPTH} == 0 (Q={q}, D={d})")
 
 
-def _raise(lib, err: int, what: str) -> None:
+def _raise(error_string, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {lib.stream_probe_error_string(err).decode()} ({err})")
+        raise RuntimeError(f"{what} kernel launch failed: {error_string(err).decode()} ({err})")
 
 
 def _stages(slots: int) -> int:
@@ -133,7 +141,7 @@ def stream_segmax(queries: torch.Tensor, corpus: torch.Tensor, seg: int = 128, l
     err = lib.stream_segmax(queries.data_ptr(), corpus.data_ptr(), 0 if scores is None else scores.data_ptr(),
                             sm.data_ptr(), q, n, d, seg, LAYOUTS[layout], int(natural), _stages(slots),
                             dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _raise(lib, err, "stream_segmax")
+    _raise(lib.stream_probe_error_string, err, "stream_segmax")
     stream_segmax.launches += 1
     return scores, sm
 
@@ -141,11 +149,31 @@ def stream_segmax(queries: torch.Tensor, corpus: torch.Tensor, seg: int = 128, l
 stream_segmax.launches = 0
 
 
+def resident_dot_limits(q: int, d: int) -> None:
+    """Raise ValueError unless K4's kernel takes Q queries of depth D."""
+    if not (1 <= q <= TILE and d % DEPTH == 0 and DEPTH <= d <= RESIDENT_MAX_D):
+        raise ValueError(f"resident_dot_segmax: the kernel takes 1 <= Q <= {TILE} and D a multiple of {DEPTH} "
+                         f"up to {RESIDENT_MAX_D} (its 64-query half beside a two-stage ring in shared "
+                         f"memory) (Q={q}, D={d})")
+
+
+def resident_dot_feed_bytes(q: int, n: int, d: int, blk: int, sms: int) -> int:
+    """Bytes K4's launch copies from L2 into shared memory: each unit (a
+    query half, a 128-row tile of block 0, RESIDENT_CHUNKS chunks) streams
+    the tile's 128 D 2 bytes once, and each of the `sms` blocks (at most
+    one a unit) loads its 64-query half once."""
+    halves = -(-q // RESIDENT_QUERIES)
+    units = (blk // TILE) * -(-(n // blk) // RESIDENT_CHUNKS)
+    blocks = min(sms // halves, units) * halves
+    return halves * units * TILE * d * 2 + blocks * RESIDENT_QUERIES * d * 2
+
+
 def resident_dot_segmax(queries: torch.Tensor, corpus: torch.Tensor, blk: int, natural: bool = False,
                         slots: int = 2) -> torch.Tensor:
     """queries [Q, D] bf16, corpus [N, D] bf16 -> [N/128, Q] f32: the
     segment maxima of corpus block 0 (its first blk rows) against the
-    queries, repeated for each of the N/blk chunks.
+    queries, repeated for each of the N/blk chunks, each chunk's from its
+    own product. On the card D <= RESIDENT_MAX_D.
 
     CUDA tensors launch the kernel (counted in
     ``resident_dot_segmax.launches``); CPU tensors take resident_dot_plain."""
@@ -156,13 +184,13 @@ def resident_dot_segmax(queries: torch.Tensor, corpus: torch.Tensor, blk: int, n
     dev = corpus.device
     if dev.type == "cpu":
         return resident_dot_plain(queries, corpus, blk)
-    lib = build.load("stream_probe")
     q, d = queries.shape
+    resident_dot_limits(q, d)
+    lib = build.load("resident_dot")
     sm = torch.empty((n // TILE, q), dtype=torch.float32, device=dev)
     err = lib.resident_dot_segmax(queries.data_ptr(), corpus.data_ptr(), sm.data_ptr(), q, n, d, blk,
-                                  int(natural), _stages(slots), dev.index,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    _raise(lib, err, "resident_dot_segmax")
+                                  int(natural), slots, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise(lib.resident_dot_error_string, err, "resident_dot_segmax")
     resident_dot_segmax.launches += 1
     return sm
 
@@ -201,7 +229,7 @@ def read_probe(corpus: torch.Tensor, blk: int, width: int = 128, slots: int = 2,
     sums = torch.zeros((n // blk,), dtype=torch.int64, device=dev)
     err = lib.read_probe(corpus.data_ptr(), heads.data_ptr(), sums.data_ptr(), n, d, blk, width, u,
                          int(static), dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _raise(lib, err, "read_probe")
+    _raise(lib.stream_probe_error_string, err, "read_probe")
     read_probe.launches += 1
     return heads, sums
 

@@ -128,8 +128,8 @@ def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
     a = build.library_path("score_segmax")
     assert a == build.library_path("score_segmax")
     assert os.path.dirname(a) == build.BUILD_DIR and "sm_90a" in " ".join(build.NVCC_FLAGS)
-    assert set(build.SIGNATURES) == {"score_segmax", "attention", "segmax", "stream_probe", "lexical", "wordpiece",
-                                     "serializer"}
+    assert set(build.SIGNATURES) == {"score_segmax", "attention", "segmax", "stream_probe", "resident_dot",
+                                     "lexical", "wordpiece", "serializer"}
     assert build.library_path("attention") != a
     # the host sources and the g++ flags are part of every library's hash
     csrc = tmp_path / "csrc"
