@@ -58,7 +58,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    hybrid path on a CPU copy; then 64-bursts timed through it and through
    a batcher of max batch 16 on the same engine; f32_wide: the same on
    the saved index's default f32 slab (RAG_TPU_CORPUS_DTYPE=f32), whose
-   Q 64 batch runs the masked kernel's f32 FMA body;
+   Q 64 batch runs the masked kernel's f32 FMA body; int8: the saved
+   index as an int8 store (RAG_TPU_INT8_CORPUS=1) behind a SearchBatcher:
+   bursts of 1, 16 and 64 with no score + segment-max launch (counted),
+   every batch equal to a CPU copy of the int8 engine and to a brute-force
+   scan of the dequantised slab on the card (1e-4), the judged and object
+   lanes (16 queries, RAG_TPU_FUSED_ATTN=1) against a CPU copy under the
+   rerank_check rules, MMR bursts (top_k 10 and 100) on the object lane
+   against the CPU copy's, get_embedding_candidates, a save and reload
+   (within 2e-3), bursts timed beside the f32 engine's, and an engine of
+   its own holding tests/test_int8_exact.py's band at D 768 among 20,000
+   seeded rows: the band's query must fail its certificate, escalate
+   (counted) and equal the scan within 1e-6, a random query certify;
 5. the rerank-on lanes, with RAG_TPU_FUSED_ATTN=1 and the committed
    reranker: encoder_fused holds the encoder with the attention kernel
    against the encoder without it (1,024 ingest chunks and a query batch,
@@ -158,7 +169,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rate; MMR burst latency and the MMR lane's stage spans; each printed as
    a JSON line naming the card. A host_libs line gives the three host
    libraries' build seconds and times against their pure-Python twins
-   (the serializer against json.dumps of to_dict).
+   (the serializer against json.dumps of to_dict);
+9. int8_scale: 10,010,624 x 768 seeded unit rows quantised on the card
+   (7.69 GB, ~1% of slots freed): hybrid_topk_quantized_packed at Q 16
+   and 64, top_k 10 and 100, with 512 distinct lexical hits a query; each
+   certified query against a row-blocked f32 scan (1e-5), each other one
+   through hybrid_topk_dequant_full against it; the times of the call and
+   its parts (_int_mm, the planes, the selection) against the 2.32 ms
+   bound, peak memory above the slab, the _int_mm kernels torch.profiler
+   sees; the band planted once more, whose query fails its certificate
+   and escalates at Q 1 (timed; under 4 GB above the slab); the bf16
+   masked kernel at the same N on a slab of its own.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -201,7 +222,7 @@ from rust_local_rag_tpu_torch.experiments import (
 from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights, get_embedding_model
 from rust_local_rag_tpu_torch.engine import persistence
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta
-from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine
+from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine, _bucket_k
 from rust_local_rag_tpu_torch.kernels import build
 from rust_local_rag_tpu_torch.models.encoder import default_asset
 from rust_local_rag_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
@@ -212,15 +233,23 @@ from rust_local_rag_tpu_torch.ops.attention import attention_plain, fused_attent
 from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
 from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
 from rust_local_rag_tpu_torch.ops.hybrid import (
+    F32_EPSILON,
     _blend_union,
+    _int8_p1,
+    _int8_upper,
+    _next_pow2,
+    _select,
     hybrid_topk,
+    hybrid_topk_dequant_full,
     hybrid_topk_packed,
     hybrid_topk_packed_mmr,
+    hybrid_topk_quantized_packed,
     unpack_topk,
     uses_score_segmax,
 )
 from rust_local_rag_tpu_torch.ops.mmr import mmr_select_batch
 from rust_local_rag_tpu_torch.ops.native_bm25 import NativeLexicalIndex
+from rust_local_rag_tpu_torch.ops.quantized import gather_dequantized, int8_scores, quantize_corpus, quantize_rows
 from rust_local_rag_tpu_torch.ops.score_segmax import (
     SEG,
     STREAM_MAX_Q,
@@ -281,6 +310,7 @@ AHEAD_CYCLES = 4_000_000
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # bf16 tensor cores, dense, H100 SXM data sheet
+H100_INT8_OPS = 1979e12     # int8 tensor cores, dense, H100 SXM data sheet
 # Scores are dots of unit vectors summed in f32 in different orders by the
 # kernel and by the plain version; each is within D * 2^-24 * |q| |c| of
 # the exact value, so they differ by at most 2 * 768 * 2^-24 = 9.2e-5.
@@ -320,6 +350,21 @@ EXPERIMENTS = (split_pipeline, split2, stream_kernel, isolate_kernel, isolate2, 
 # max |kernel - plain| over the largest |plain| score
 EXP_REL_TOL = 1e-4
 BURSTS = (1, 16, 64)
+# int8 capacity mode: the band of tests/test_int8_exact.py at D 768 among
+# seeded distractors, compared at BAND_TOL (its rows tie within 2e-5)
+INT8_BAND = 200
+INT8_DISTRACTORS = 20000
+BAND_TOL = 1e-6
+# a load renormalises the saved (dequantised) rows before it quantises them
+# again, so a reload's scores move within tests/test_int8_engine.py's budget
+INT8_RELOAD_TOL = 2e-3
+# int8_scale: the README's 10M chunks on one chip, N cut to 611 x 16,384
+INT8_N = 611 * 16384
+INT8_SCALE_Q = (16, 64)
+INT8_SCALE_TOP_K = (10, 100)
+INT8_SCALE_TOL = 1e-5
+INT8_BLOCK = 1 << 18  # rows generated, quantised or scanned at once
+INT8_ESCALATION_PEAK = 4e9  # bytes the escalation lane may add above the slab
 TOP_K = 10
 # the MMR lane: BASELINE.json config 2's diversity, and its top_k 100 for
 # one burst; 64 chunks ingested twice give pools with exact duplicates
@@ -391,6 +436,21 @@ micrometer caliper meter probe tester analyzer recorder logger camera
 
 def log(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+@contextmanager
+def env_set(name: str, value: str):
+    """The environment variable `name` set to `value` inside the block,
+    restored (or removed) after it."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = prev
 
 
 @contextmanager
@@ -818,15 +878,8 @@ def wide_batch(engine, dev, card: str, rng, probs, slab: str, reps: int = 5) -> 
     warm-up). Logged as the phase's name, f"{slab}_wide"."""
     name = f"{slab}_wide"
     want_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[slab]
-    prev = os.environ.get("RAG_TPU_CORPUS_DTYPE")
-    os.environ["RAG_TPU_CORPUS_DTYPE"] = slab
-    try:
+    with env_set("RAG_TPU_CORPUS_DTYPE", slab):
         wide = RagEngine(engine.data_dir, engine.embedding_service, device=dev)
-    finally:
-        if prev is None:
-            os.environ.pop("RAG_TPU_CORPUS_DTYPE")
-        else:
-            os.environ["RAG_TPU_CORPUS_DTYPE"] = prev
     if wide.store.corpus().dtype != want_dtype or len(wide.store) != len(engine.store):
         raise AssertionError(f"{name}: {wide.store.corpus().dtype} slab of {len(wide.store)} chunks")
     wide.warmup()
@@ -874,6 +927,457 @@ def wide_batch(engine, dev, card: str, rng, probs, slab: str, reps: int = 5) -> 
         for batcher in batchers.values():
             batcher.stop()
     return {"launches": launches, "checked": len(burst), "latency": latency}
+
+
+def int8_engine(data_dir: str, service, dev, reranker=None):
+    """A RagEngine over data_dir with RAG_TPU_INT8_CORPUS=1."""
+    with env_set("RAG_TPU_INT8_CORPUS", "1"):
+        return RagEngine(data_dir, service, reranker, device=dev)
+
+
+def scan_topk(q32, values, scales, mask, lex_slots, lex_vals, w_e: float, w_l: float, k: int) -> list:
+    """The exact hybrid top-k by a full scan, per query [(slot, combined,
+    emb, lex)]: every row's f32 dense score against its dequantised row
+    (values.float() * scale, INT8_BLOCK rows at a time; TF32 off), the
+    lexical hits' normalised scores added at their slots, freed slots out.
+    An implementation of its own, not the port's two-phase path."""
+    qn, n = q32.shape[0], values.shape[0]
+    dense = torch.empty((qn, n), dtype=torch.float32, device=q32.device)
+    for r0 in range(0, n, INT8_BLOCK):
+        rows = values[r0 : r0 + INT8_BLOCK].float() * scales[r0 : r0 + INT8_BLOCK]
+        dense[:, r0 : r0 + INT8_BLOCK] = q32 @ rows.T
+    dense.masked_fill_(~mask[None, :], float("-inf"))
+    lex_slots = torch.as_tensor(lex_slots, device=q32.device)[:qn].long()
+    lv = torch.as_tensor(lex_vals, device=q32.device)[:qn].float()
+    hit = lex_slots >= 0
+    lv = torch.where(hit, lv, 0.0)
+    lexn_sparse = lv / torch.clamp(lv.amax(dim=1, keepdim=True), min=F32_EPSILON)
+    lexn = torch.zeros_like(dense)
+    rows_of_hit = torch.arange(qn, device=q32.device)[:, None].expand_as(lex_slots)
+    lexn[rows_of_hit[hit], lex_slots[hit]] = lexn_sparse[hit]
+    combined = w_e * dense + w_l * lexn
+    vals, idx = torch.topk(combined, k, dim=1)
+    emb, lex = torch.gather(dense, 1, idx), torch.gather(lexn, 1, idx)
+    del dense, lexn, combined
+    return [[(int(i), float(v), float(e), float(x)) for i, v, e, x in zip(*(t[r].tolist() for t in (idx, vals, emb, lex)))
+             if np.isfinite(v)] for r in range(qn)]
+
+
+def columnar_rows(col, qi: int) -> list:
+    """[(slot, combined, emb, lex)] of one query of a ColumnarResults."""
+    return [(int(s), float(v), float(e), float(x))
+            for s, v, e, x in zip(col.slots[qi], col.vals[qi], col.emb[qi], col.lex[qi]) if s >= 0 and np.isfinite(v)]
+
+
+def band_rows(rng: np.random.Generator, d: int):
+    """tests/test_int8_exact.py's rows at width d: INT8_BAND rows at cosine
+    0.7 + 2e-5 u to `base`, INT8_DISTRACTORS below 0.3. -> (rows, base)."""
+    base = rng.standard_normal(d).astype(np.float32)
+    base /= np.linalg.norm(base)
+    n = INT8_BAND + INT8_DISTRACTORS
+    noise = rng.standard_normal((n, d)).astype(np.float32)
+    noise -= (noise @ base)[:, None] * base[None, :]
+    noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+    c = np.where(np.arange(n) < INT8_BAND, 0.7 + 2e-5 * rng.random(n), 0.3 * rng.random(n)).astype(np.float32)
+    rows = c[:, None] * base[None, :] + np.sqrt(np.maximum(1 - c * c, 0.0))[:, None] * noise
+    return rows.astype(np.float32), base
+
+
+def burst_ms(batcher, rng, probs, b: int, reps: int = 5, top_k: int = TOP_K) -> list:
+    """ms of `reps` bursts of b rerank-off queries through the batcher,
+    after one burst as a warm-up."""
+    lat = []
+    for rep in range(reps + 1):
+        qs = queries_for(rng, b, probs)
+        t0 = time.perf_counter()
+        for f in [batcher.submit(q, top_k, 0.0, None, use_reranker=False) for q in qs]:
+            f.result(timeout=300)
+        if rep:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def run_int8(engine, batcher, dev, card: str, seconds: dict, tmp: str, probs, seed: int) -> dict:
+    """The int8 capacity mode on the saved index (RAG_TPU_INT8_CORPUS=1):
+    the hot lane through SearchBatcher (no score + segment-max launch; each
+    batch against a CPU copy of the int8 engine and a brute-force scan of
+    the dequantised slab on the card), the judged and object lanes with
+    the attention kernel against the CPU copy (rerank_check rules), MMR on
+    the object lane against the CPU copy's, get_embedding_candidates, a
+    save and reload, burst latency beside the f32 engine's, and the
+    adversarial band in an engine of its own (the certificate fails, the
+    query escalates and equals the scan; a random query certifies)."""
+    rng = np.random.default_rng([seed, 13])
+    out = {}
+    with phase("int8", card, seconds):
+        e8 = int8_engine(engine.data_dir, engine.embedding_service, dev, engine.reranker)
+        store = e8.store
+        if store.corpus().dtype != torch.int8 or len(store) != len(engine.store):
+            raise AssertionError(f"int8: a {store.corpus().dtype} slab of {len(store)} chunks")
+        e8.warmup()
+        b8 = SearchBatcher(e8, RwLock())
+        recorded = []
+        dispatch = e8.dispatch_search
+
+        def recording_dispatch(queries, top_k, *a, **kw):
+            pending = dispatch(queries, top_k, *a, **kw)
+            recorded.append((list(queries), pending))
+            return pending
+
+        try:
+            # hot lane
+            bursts = {b: queries_for(rng, b, probs) for b in BURSTS}
+            e8.dispatch_search = recording_dispatch
+            score_segmax.launches = 0
+            answers = {}
+            for b in BURSTS:
+                futs = [b8.submit(q, TOP_K, 0.0, None, use_reranker=False) for q in bursts[b]]
+                answers.update({q: f.result(timeout=300) for q, f in zip(bursts[b], futs)})
+            launches = score_segmax.launches
+            del e8.dispatch_search
+            channels = {p.out.shape[1] for _, p in recorded}
+            out["hot"] = {"score_segmax_masked": launches, "int8_escalations": e8.int8_escalations,
+                          "batch_sizes": [len(qs) for qs, _ in recorded], "packed_channels": sorted(channels)}
+            log({"int8": "hot", **out["hot"], "card": card})
+            if launches != 0 or channels != {5}:
+                raise AssertionError(f"int8 hot lane: {launches} score_segmax launches, packed channels {channels}")
+            cpu = cpu_engine(e8, tmp, "int8_cpu_copy")
+            values, scales, mask = store.corpus(), store.scales(), store.valid_mask()
+            for queries, p in recorded:
+                cpu._prep_queries = lambda qs, nq_pad, e=p.q_emb.cpu(): e
+                col = cpu.fetch_columnar(cpu.dispatch_search(queries, TOP_K))
+                scan = scan_topk(p.q_emb[: len(queries)], values, scales, mask, p.lex_slots, p.lex_vals,
+                                 p.resolved.embedding, p.resolved.lexical, TOP_K)
+                for qi, q in enumerate(queries):
+                    got = rows_of(answers[q], store)
+                    same_topk(got, columnar_rows(col, qi), SCORE_TOL, f"int8 hot vs CPU copy {q!r}")
+                    same_topk(got, scan[qi], SCORE_TOL, f"int8 hot vs scan {q!r}")
+            log({"int8_checked_against_cpu_copy_and_scan": len(answers)})
+
+            # rerank lanes, with the attention kernel
+            q_embs = {}
+            prep = e8._prep_queries
+
+            def recording_prep(queries, nq_pad):
+                q_embs[tuple(queries)] = prep(queries, nq_pad)
+                return q_embs[tuple(queries)]
+
+            qs = queries_for(rng, 16, probs)
+            near, worst = [], {"rr": 0.0, "logprob": 0.0}
+            with env_set("RAG_TPU_FUSED_ATTN", "1"):
+                e8._prep_queries = recording_prep
+                fused_attention.launches = 0
+                score_segmax.launches = 0
+                pre, jc = judged_pass(e8, qs)
+                obj = e8.search_batch(qs, TOP_K, None)
+                attn, masked = fused_attention.launches, score_segmax.launches
+                del e8._prep_queries
+                out["rerank"] = {"fused_attention": attn, "score_segmax_masked": masked}
+                if attn <= 0 or masked != 0 or e8.rerank_fallbacks or e8.reranker.fallbacks:
+                    raise AssertionError(f"int8 rerank lanes: {attn} attention, {masked} score_segmax launches, "
+                                         f"fallbacks {e8.rerank_fallbacks} / {e8.reranker.fallbacks}")
+                rcpu = cpu_engine(e8, tmp, "int8_rerank_cpu",
+                                  RerankerService(TransformerReranker.from_assets(device="cpu")))
+                rcpu._prep_queries = lambda queries, nq_pad: q_embs[tuple(queries)].cpu()
+                pre_c, jc_c = judged_pass(rcpu, qs)
+                compare_judged({"queries": qs, "pre_slots": pre, "jc": jc}, pre_c, jc_c, False, near, worst,
+                               "int8 judged, CPU copy")
+                compare_object(obj, rcpu.search_batch(qs, TOP_K, None), qs, False, near, worst,
+                               "int8 object, CPU copy")
+            log({"int8": "rerank", **out["rerank"], "judge_max_diff_vs_cpu_copy": worst, "near": near,
+                 "card": card})
+
+            # MMR: the object lane on dequantised rows
+            if e8.supports_columnar_mmr() or e8.dispatch_search_mmr(["x"], TOP_K, DIVERSITY) is not None:
+                raise AssertionError("int8: the MMR hot lane answered an int8 store")
+            general = e8.search_with_diversity_batch
+            mmr_batches = []
+
+            def recording_general(queries, top_k, diversity, weights=None, **kw):
+                res = general(queries, top_k, diversity, weights, **kw)
+                mmr_batches.append((list(queries), top_k, res))
+                return res
+
+            e8._prep_queries, e8.search_with_diversity_batch = recording_prep, recording_general
+            try:
+                for b, top_k in ((1, TOP_K), (16, TOP_K), (16, MMR_WIDE_K)):
+                    burst = queries_for(rng, b, probs)
+                    for f in [b8.submit(q, top_k, DIVERSITY, None, use_reranker=False) for q in burst]:
+                        if len(f.result(timeout=600)) != top_k:
+                            raise AssertionError("int8 MMR: a short result list")
+            finally:
+                del e8._prep_queries, e8.search_with_diversity_batch
+            cpu._prep_queries = lambda queries, nq_pad: q_embs[tuple(queries)].cpu()
+            deq = gather_dequantized(cpu.store.corpus(), cpu.store.scales(), torch.arange(cpu.store.capacity))
+            mmr_near = []
+            for i, (queries, top_k, res) in enumerate(mmr_batches):
+                want = cpu.search_with_diversity_batch(queries, top_k, DIVERSITY, use_reranker=False)
+                for q, a, w in zip(queries, res, want):
+                    compare_mmr(rows_of(a, store), rows_of(w, store), deq, DIVERSITY, mmr_near, f"int8 mmr {i} {q!r}")
+            out["mmr"] = {"object_lane_batches": len(mmr_batches), "near": len(mmr_near)}
+            log({"int8": "mmr", **out["mmr"], "near_cases": mmr_near[:10], "card": card})
+            if not mmr_batches:
+                raise AssertionError("int8: no MMR batch took the object lane")
+
+            # calibration candidates, save and reload
+            for q in bursts[16][:4]:
+                got = [(c.chunk_id, c.initial_score, c.initial_score, 0.0) for c in e8.get_embedding_candidates(q, TOP_K)]
+                want = [(c.chunk_id, c.initial_score, c.initial_score, 0.0) for c in cpu.get_embedding_candidates(q, TOP_K)]
+                same_topk(got, want, SCORE_TOL, f"int8 get_embedding_candidates {q!r}")
+            e8.data_dir = os.path.join(tmp, "int8_index")
+            os.makedirs(e8.data_dir)
+            e8.save_to_disk()
+            e8b = int8_engine(e8.data_dir, engine.embedding_service, dev)
+            if not e8b.store.quantized or len(e8b.store) != len(store):
+                raise AssertionError("int8 reload: the index did not come back as an int8 store")
+            for q, a, b in zip(bursts[16], e8.search_batch(bursts[16], TOP_K, use_reranker=False),
+                               e8b.search_batch(bursts[16], TOP_K, use_reranker=False)):
+                same_topk(rows_of(a, store), rows_of(b, e8b.store), INT8_RELOAD_TOL, f"int8 reload {q!r}")
+            del e8b, cpu, rcpu, deq
+
+            # burst latency beside the f32 engine's, in turns
+            lat = {"int8": {}, "f32": {}}
+            for b in BURSTS:
+                for name, bt in (("int8", b8), ("f32", batcher)):
+                    lat[name][b] = burst_ms(bt, rng, probs, b)
+                log({"int8_burst": b, "top_k": TOP_K, "median_ms": statistics.median(lat["int8"][b]),
+                     "f32_median_ms": statistics.median(lat["f32"][b]), "int8_ms": lat["int8"][b],
+                     "f32_ms": lat["f32"][b], "card": card})
+            out["latency"] = lat
+        finally:
+            b8.stop()
+
+        # the adversarial band, in an engine of its own
+        os.makedirs(os.path.join(tmp, "int8_band"))
+        band = int8_engine(os.path.join(tmp, "int8_band"), engine.embedding_service, dev)
+        rows, base = band_rows(rng, DIM)
+        rand = rng.standard_normal(DIM).astype(np.float32)
+        rand /= np.linalg.norm(rand)
+        metas = [ChunkMeta(id=str(uuid.UUID(int=int(rng.integers(2**63)) << 64 | i)), document_name="int8_band",
+                 text=f"{'near tie' if i < INT8_BAND else 'distractor'} chunk {i}", chunk_index=i)
+                 for i in range(len(rows))]
+        band.add_chunks(metas, rows)
+        probes = {"qqq adversarial direction": base, "qqq random direction": rand}
+
+        def probe_prep(queries, nq_pad):
+            q = np.zeros((nq_pad, DIM), np.float32)
+            q[: len(queries)] = [probes[t] for t in queries]
+            return torch.as_tensor(q, device=dev)
+
+        band._prep_queries = probe_prep
+        bb = SearchBatcher(band, RwLock())
+        try:
+            bs = band.store
+            for text, escalates in (("qqq adversarial direction", True), ("qqq random direction", False)):
+                before = band.int8_escalations
+                got = rows_of(bb.submit(text, TOP_K, 0.0, None, use_reranker=False).result(timeout=300), bs)
+                if (band.int8_escalations > before) != escalates:
+                    raise AssertionError(f"int8 band {text!r}: escalations {before} -> {band.int8_escalations}")
+                r = ResolvedWeights.from_query_weights(None)
+                want = scan_topk(torch.as_tensor(probes[text][None, :], device=dev), bs.corpus(), bs.scales(),
+                                 bs.valid_mask(), np.full((1, 1), -1, np.int32), np.zeros((1, 1), np.float32),
+                                 r.embedding, r.lexical, TOP_K)[0]
+                same_topk(got, want, BAND_TOL, f"int8 band {text!r} vs scan")
+            out["band"] = {"rows": len(bs), "int8_escalations": band.int8_escalations}
+            log({"int8": "band", **out["band"], "tol": BAND_TOL, "card": card})
+        finally:
+            bb.stop()
+    return out
+
+
+def quantized_slab(n: int, d: int, seed: int, dev):
+    """n seeded standard-normal rows, unit-normalised and quantised on the
+    card INT8_BLOCK rows at a time by ops/quantized.quantize_corpus ->
+    (values [n, d] int8, scales [n, 1], l1 [n])."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    values = torch.empty((n, d), dtype=torch.int8, device=dev)
+    scales = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    for r0 in range(0, n, INT8_BLOCK):
+        rows = torch.randn((min(INT8_BLOCK, n - r0), d), generator=gen, device=dev)
+        qc = quantize_corpus(torch.nn.functional.normalize(rows, dim=1))
+        values[r0 : r0 + len(rows)], scales[r0 : r0 + len(rows)] = qc.values, qc.scales
+    l1 = scales[:, 0] * values.abs().sum(dim=1, dtype=torch.int32).float()
+    return values, scales, l1
+
+
+def bf16_slab(n: int, d: int, seed: int, dev) -> torch.Tensor:
+    """quantized_slab's rows before quantisation, as a bf16 slab."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    for r0 in range(0, n, INT8_BLOCK):
+        rows = torch.randn((min(INT8_BLOCK, n - r0), d), generator=gen, device=dev)
+        out[r0 : r0 + len(rows)] = torch.nn.functional.normalize(rows, dim=1).to(torch.bfloat16)
+    return out
+
+
+def lexical_hits(live: torch.Tensor, q: int, gen, width: int = 512):
+    """Per query `width` distinct live slots with seeded BM25-like scores
+    in [0, 10): ([q, width] int32, [q, width] f32). Distinct, as the
+    lexical index returns them (a repeated slot would add its boost twice
+    in the blend)."""
+    slots = []
+    for _ in range(q):
+        u = torch.unique(torch.randint(0, len(live), (2 * width,), generator=gen, device=live.device))
+        slots.append(live[u[torch.randperm(len(u), generator=gen, device=live.device)[:width]]])
+    return torch.stack(slots).to(torch.int32), torch.rand((q, width), generator=gen, device=live.device) * 10
+
+
+def peak_above(fn) -> tuple:
+    """(fn(), bytes the call's peak allocation reached above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base
+
+
+def device_kernels(fn) -> list:
+    """Names of the kernels one call of fn() launches, from torch.profiler;
+    ["not measured: ..."] where the profiler sees no device events."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA})
+        return names or ["not measured: the profiler saw no device events"]
+    except RuntimeError as e:
+        return [f"not measured: {e}"]
+
+
+def run_int8_scale(seed: int, dev, card: str) -> dict:
+    """10,010,624 x 768 int8 rows on the card (about 1% of slots freed):
+    hybrid_topk_quantized_packed at Q 16 and 64, top_k 10 and 100 (the
+    engine's k buckets) with 512 lexical hits a query; each certified
+    query against the scan, each uncertified one through
+    hybrid_topk_dequant_full against it; the planted band's query must
+    fail its certificate and escalate at Q 1. Times by CUDA events (the
+    whole call and its parts), peak memory above the slab, the bound,
+    _int_mm alone as the library line, and the bf16 masked kernel at the
+    same N (a slab of its own, freed after)."""
+    n, d = INT8_N, DIM
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    values, scales, l1 = quantized_slab(n, d, seed, dev)
+    mask = torch.rand(n, generator=gen, device=dev) > 0.01
+    r = ResolvedWeights.from_query_weights(None)
+    w_e, w_l = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (r.embedding, r.lexical))
+    slab_bytes = values.numel() + scales.numel() * 4 + l1.numel() * 4 + mask.numel()
+    b_bytes = slab_bytes / H100_BYTES_PER_S * 1e3
+    log({"int8_scale": "slab", "N": n, "D": d, "live": int(mask.sum()), "slab_bytes": slab_bytes,
+         "int8_gb": values.numel() / 1e9, "card": card})
+    rows_out = []
+    live = torch.nonzero(mask)[:, 0]
+    for q in INT8_SCALE_Q:
+        queries = torch.nn.functional.normalize(torch.randn((q, d), generator=gen, device=dev), dim=1)
+        lex_slots, lex_vals = lexical_hits(live, q, gen)
+        for top_k in INT8_SCALE_TOP_K:
+            k = _bucket_k(top_k)
+            c = min(_next_pow2(4 * k), n)
+            args = (queries, values, scales, l1, mask, lex_slots, lex_vals, w_e, w_l, k)
+            packed, peak = peak_above(lambda: hybrid_topk_quantized_packed(*args))
+            arr = packed.cpu().numpy()
+            vals, emb, lex, idx = unpack_topk(arr, q, top_k)
+            certified = arr[:, 4, 0] > 0
+            scan = scan_topk(queries, values, scales, mask, lex_slots, lex_vals, r.embedding, r.lexical, top_k)
+            fail = np.flatnonzero(~certified)
+            if len(fail):
+                esc = hybrid_topk_dequant_full(queries[torch.as_tensor(fail, device=dev)], values, scales, mask,
+                                               lex_slots[fail], lex_vals[fail], w_e, w_l, k)
+                e_vals, e_emb, e_lex, e_idx = (x.cpu().numpy()[:, :top_k] for x in esc)
+            for qi in range(q):
+                if certified[qi]:
+                    got = [(int(s), float(v), float(e), float(x))
+                           for s, v, e, x in zip(idx[qi], vals[qi], emb[qi], lex[qi]) if s >= 0]
+                else:
+                    j = int(np.flatnonzero(fail == qi)[0])
+                    got = [(int(s), float(v), float(e), float(x))
+                           for s, v, e, x in zip(e_idx[j], e_vals[j], e_emb[j], e_lex[j]) if s >= 0]
+                same_topk(got, scan[qi], INT8_SCALE_TOL, f"int8_scale Q{q} top{top_k} query {qi}")
+            q_int8, _ = quantize_rows(queries)
+            ms = cuda_ms(lambda: hybrid_topk_quantized_packed(*args), reps=5, calls=3)
+            mm_ms = cuda_ms(lambda: int8_scores(q_int8, values), reps=5, calls=3)
+
+            def planes():
+                p1, q_scale = _int8_p1(queries, values, scales)
+                return _int8_upper(p1, q_scale, l1, mask)
+
+            planes_ms = cuda_ms(planes, reps=5, calls=3)
+            upper = planes()
+            select_ms = cuda_ms(lambda: _select(upper, c), reps=5, calls=3)
+            del upper
+            b_ops = 2 * q * n * d / H100_INT8_OPS * 1e3
+            row = {"int8_scale": "first_stage", "Q": q, "top_k": top_k, "k": k, "candidates": c, "N": n, "D": d,
+                   "certified": int(certified.sum()), "escalated_checked": len(fail), "ms": ms,
+                   "int_mm_ms": mm_ms, "planes_ms": planes_ms - mm_ms, "select_ms": select_ms,
+                   "rescore_blend_ms": ms - planes_ms - select_ms, "peak_above_slab_bytes": peak,
+                   "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                   "library_ms": mm_ms, "card": card}
+            log(row)
+            rows_out.append(row)
+        if q == INT8_SCALE_Q[0]:
+            q_int8, _ = quantize_rows(queries)
+            log({"int8_scale": "int_mm_kernels", "Q": q, "kernels": device_kernels(lambda: int8_scores(q_int8, values)),
+                 "card": card})
+        del queries, lex_slots, lex_vals
+
+    # the band, planted once more: its query fails the certificate and
+    # escalates at Q 1
+    rows, base = band_rows(np.random.default_rng([seed, 14]), d)
+    base = torch.from_numpy(base).to(dev)
+    qc = quantize_corpus(torch.nn.functional.normalize(torch.from_numpy(rows[:INT8_BAND]).to(dev), dim=1))
+    values[:INT8_BAND], scales[:INT8_BAND] = qc.values, qc.scales
+    l1[:INT8_BAND] = qc.scales[:, 0] * qc.values.abs().sum(dim=1, dtype=torch.int32).float()
+    mask[:INT8_BAND] = True
+    no_lex = (torch.full((1, 512), -1, dtype=torch.int32, device=dev), torch.zeros((1, 512), device=dev))
+    one = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+    flag = hybrid_topk_quantized_packed(base[None, :], values, scales, l1, mask, *no_lex, one, zero,
+                                        _bucket_k(TOP_K))[0, 4, 0].item()
+    (e_vals, _, _, e_idx), peak = peak_above(
+        lambda: hybrid_topk_dequant_full(base[None, :], values, scales, mask, *no_lex, one, zero, _bucket_k(TOP_K)))
+    got = [(int(s), float(v), float(v), 0.0) for s, v in zip(e_idx[0, :TOP_K].tolist(), e_vals[0, :TOP_K].tolist())]
+    want = scan_topk(base[None, :], values, scales, mask, no_lex[0], no_lex[1], 1.0, 0.0, TOP_K)[0]
+    same_topk(got, want, BAND_TOL, "int8_scale band escalation vs scan")
+    if flag or not all(s < INT8_BAND for s, *_ in got):
+        raise AssertionError(f"int8_scale band: certificate {flag}, slots {[s for s, *_ in got]}")
+    esc_ms = cuda_ms(lambda: hybrid_topk_dequant_full(base[None, :], values, scales, mask, *no_lex, one, zero,
+                                                      _bucket_k(TOP_K)), reps=3, calls=1)
+    escalation = {"int8_scale": "escalation", "Q": 1, "top_k": TOP_K, "certificate": flag, "ms": esc_ms,
+                  "peak_above_slab_bytes": peak, "limit_bytes": INT8_ESCALATION_PEAK, "card": card}
+    log(escalation)
+    if not peak < INT8_ESCALATION_PEAK:
+        raise AssertionError(f"int8_scale: the escalation lane took {peak} bytes above the slab")
+    del values, scales, l1, qc
+    torch.cuda.empty_cache()
+
+    # the same N on a bf16 slab through the masked kernel
+    corpus = bf16_slab(n, d, seed, dev)
+    bf16_rows = []
+    for q in INT8_SCALE_Q:
+        queries = torch.nn.functional.normalize(torch.randn((q, d), generator=gen, device=dev), dim=1)
+        lex_slots, lex_vals = lexical_hits(live, q, gen)
+        args = (queries, corpus, mask, lex_slots, lex_vals, w_e, w_l, _bucket_k(TOP_K))
+        score_segmax.launches = 0
+        hybrid_topk_packed(*args)
+        torch.cuda.synchronize()
+        if score_segmax.launches != 1:
+            raise AssertionError(f"int8_scale bf16: {score_segmax.launches} masked kernel launches")
+        b_ms, b_by = bound(q, n, d, 2, 4, True)
+        row = {"int8_scale": "bf16_masked", "Q": q, "top_k": TOP_K, "N": n, "D": d,
+               "ms": cuda_ms(lambda: hybrid_topk_packed(*args), reps=5, calls=3),
+               "kernel_ms": cuda_ms(lambda: score_segmax(queries, corpus, mask), reps=5, calls=3),
+               "bound_ms": b_ms, "bound_by": b_by, "slab_only_bound_ms": n * d * 2 / H100_BYTES_PER_S * 1e3,
+               "card": card}
+        log(row)
+        bf16_rows.append(row)
+        del queries, lex_slots, lex_vals
+    del corpus, mask, live
+    torch.cuda.empty_cache()
+    return {"first_stage": rows_out, "escalation": escalation, "bf16": bf16_rows}
 
 
 def attention_bound(b: int, h: int, l: int):
@@ -1126,6 +1630,8 @@ def cpu_engine(engine, tmp: str, name: str, reranker=None):
     store = copy.copy(engine.store)
     store._emb = engine.store.corpus().cpu()
     store._mask = engine.store.valid_mask().cpu()
+    if store.quantized:
+        store._scales, store._l1 = engine.store.scales().cpu(), engine.store.l1().cpu()
     store.device = torch.device("cpu")
     cpu = RagEngine(os.path.join(tmp, name), engine.embedding_service, reranker, device="cpu")
     cpu.store, cpu.lexical_index = store, engine.lexical_index
@@ -1727,6 +2233,21 @@ HTTP_LANES = {
 SERVER_TOL = 1e-6
 DISK_BEHIND = 32000  # chunks left on disk under the running server (C8)
 HTTP_BURSTS = (1, 16, 64)
+# int8 capacity mode: the band of tests/test_int8_exact.py at D 768 among
+# seeded distractors, compared at BAND_TOL (its rows tie within 2e-5)
+INT8_BAND = 200
+INT8_DISTRACTORS = 20000
+BAND_TOL = 1e-6
+# a load renormalises the saved (dequantised) rows before it quantises them
+# again, so a reload's scores move within tests/test_int8_engine.py's budget
+INT8_RELOAD_TOL = 2e-3
+# int8_scale: the README's 10M chunks on one chip, N cut to 611 x 16,384
+INT8_N = 611 * 16384
+INT8_SCALE_Q = (16, 64)
+INT8_SCALE_TOP_K = (10, 100)
+INT8_SCALE_TOL = 1e-5
+INT8_BLOCK = 1 << 18  # rows generated, quantised or scanned at once
+INT8_ESCALATION_PEAK = 4e9  # bytes the escalation lane may add above the slab
 SERIALIZER_SOURCE = "rust_local_rag_tpu_torch/csrc/serializer.cpp"
 GATE_QUERIES = "eval_harness/ground_truth/queries.jsonl"
 GATE_TOP_K = 5  # eval_harness/configs/baseline.yaml top_k
@@ -2882,10 +3403,12 @@ def main(argv=None) -> int:
         for size, lat in result["mmr"]["latency"].items():
             log({"mmr_burst": size, "diversity": DIVERSITY, "median_ms": statistics.median(lat), "min_ms": min(lat),
                  "max_ms": max(lat), "reps": len(lat), "card": card})
+    with phase("int8_scale", card, seconds):
+        run_int8_scale(args.seed, dev, card)
     log({"phase_seconds": seconds, "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
-                      "f32_wide": result["f32_wide"]["launches"],
+                      "f32_wide": result["f32_wide"]["launches"], "int8": result["int8"]["hot"]["score_segmax_masked"],
                       "mmr": result["mmr"]["launches"],
                       **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()},
                       "http": srv["launches"]["score_segmax_masked"]}
@@ -2936,7 +3459,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES,
-        "launches": sum(x["fused_attention"] for x in rr["launches"].values()) + srv["launches"]["fused_attention"],
+        "launches": (sum(x["fused_attention"] for x in rr["launches"].values()) + srv["launches"]["fused_attention"]
+                     + result["int8"]["rerank"]["fused_attention"]),
         "max_abs_err": max_err_attn,
         "ms": attn_main["ms"],
         "plain_ms": attn_main["plain_ms"],
@@ -3097,6 +3621,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             wide = wide_batch(engine, dev, card, np.random.default_rng([args.seed, 11]), probs, "bf16")
         with phase("f32_wide", card, seconds):
             f32_wide = wide_batch(engine, dev, card, np.random.default_rng([args.seed, 12]), probs, "f32")
+        int8 = run_int8(engine, batcher, dev, card, seconds, tmp, probs, args.seed)
 
         with phase("latency", card, seconds):
             latency = {}
@@ -3142,7 +3667,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
             "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
             "lexical": lex_stats, "tokenizer": tok_stats, "server": server, "bf16_wide": wide,
-            "f32_wide": f32_wide}
+            "f32_wide": f32_wide, "int8": int8}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Device-resident chunk store: an embedding slab plus host-side metadata
-(port of rust_local_rag_tpu/engine/chunk_store.py, f32/bf16 slabs, one
-device, no quantised mode and no mesh).
+(port of rust_local_rag_tpu/engine/chunk_store.py: f32, bf16 and int8
+slabs on one device, no mesh).
 
   * device: a preallocated [capacity, D] embedding tensor and a [capacity]
     bool validity mask. New rows are written in place; a document
@@ -11,6 +11,12 @@ device, no quantised mode and no mesh).
   * ``mutations`` counts every change of what the slots hold (add, remove,
     compact), as in the JAX store: the response serializer keys its
     "every fragment registered" state on it.
+  * quantized=True (the int8 capacity mode): an int8 [capacity, D] slab,
+    per-row f32 scales [capacity, 1] and l1 [capacity] (scale_i *
+    ||v_i8||_1, the exactness certificate's bound), all on the device.
+    Rows are quantised on the host with the JAX store's numpy code, so
+    values, scales and l1 are bit-identical with its; snapshots
+    dequantise (f32), so the saved format is the same.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from rust_local_rag_tpu_torch.device import resolve_device
+from rust_local_rag_tpu_torch.ops.quantized import QuantizedCorpus
 
 
 @dataclass
@@ -44,14 +51,22 @@ class ChunkStore:
         dtype: torch.dtype = torch.float32,
         initial_capacity: int = 1024,
         device: str | torch.device = "cuda",
+        quantized: bool = False,
     ):
-        if dtype not in (torch.float32, torch.bfloat16):
+        """quantized=True stores int8 rows and their scales (dtype is then
+        ignored, as in the JAX store)."""
+        self.quantized = bool(quantized)
+        if self.quantized:
+            dtype = torch.int8
+        elif dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"slab dtype must be float32 or bfloat16, got {dtype}")
         self.dim = int(dim)
         self.dtype = dtype
         self.device = resolve_device(device)
         self._capacity = int(initial_capacity)
         self._emb = torch.zeros((self._capacity, self.dim), dtype=dtype, device=self.device)
+        self._scales = self._zeros((self._capacity, 1)) if self.quantized else None
+        self._l1 = self._zeros((self._capacity,)) if self.quantized else None
         self._mask = torch.zeros((self._capacity,), dtype=torch.bool, device=self.device)
         self._meta: List[Optional[ChunkMeta]] = [None] * self._capacity
         self._id_to_slot: Dict[str, int] = {}
@@ -72,9 +87,29 @@ class ChunkStore:
     def high_water(self) -> int:
         return self._high_water
 
+    def _zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
     def corpus(self) -> torch.Tensor:
         """[capacity, D] device slab (rows outside the mask are garbage)."""
         return self._emb
+
+    def scales(self) -> torch.Tensor:
+        """[capacity, 1] f32 per-row dequantisation scales (int8 store)."""
+        if self._scales is None:
+            raise RuntimeError("store is not quantized")
+        return self._scales
+
+    def l1(self) -> torch.Tensor:
+        """[capacity] f32 dequantised L1 norms scale_i * ||v_i8||_1 (int8
+        store): the exactness certificate's error bound."""
+        if self._l1 is None:
+            raise RuntimeError("store is not quantized")
+        return self._l1
+
+    def quantized_corpus(self) -> QuantizedCorpus:
+        """The int8 slab and its scales as ops/quantized's QuantizedCorpus."""
+        return QuantizedCorpus(values=self._emb, scales=self.scales())
 
     def valid_mask(self) -> torch.Tensor:
         """[capacity] device bool mask of live slots."""
@@ -115,6 +150,9 @@ class ChunkStore:
         self._emb = torch.cat(
             [self._emb, torch.zeros((pad, self.dim), dtype=self.dtype, device=self.device)]
         )
+        if self.quantized:
+            self._scales = torch.cat([self._scales, self._zeros((pad, 1))])
+            self._l1 = torch.cat([self._l1, self._zeros((pad,))])
         self._mask = torch.cat(
             [self._mask, torch.zeros((pad,), dtype=torch.bool, device=self.device)]
         )
@@ -149,8 +187,18 @@ class ChunkStore:
             self._meta[slot] = meta
             self._id_to_slot[meta.id] = slot
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        rows = torch.as_tensor(np.asarray(embeddings, dtype=np.float32))
-        self._emb[idx] = rows.to(self.device, self.dtype)
+        emb32 = np.asarray(embeddings, dtype=np.float32)
+        if self.quantized:
+            # the JAX store's host quantisation, line for line
+            absmax = np.maximum(np.abs(emb32).max(axis=1, keepdims=True), 1e-10)
+            scale = (absmax / 127.0).astype(np.float32)
+            q = np.clip(np.round(emb32 / scale), -127, 127).astype(np.int8)
+            l1 = (scale[:, 0] * np.abs(q).astype(np.float32).sum(axis=1)).astype(np.float32)
+            self._emb[idx] = torch.from_numpy(q).to(self.device)
+            self._scales[idx] = torch.from_numpy(scale).to(self.device)
+            self._l1[idx] = torch.from_numpy(l1).to(self.device)
+        else:
+            self._emb[idx] = torch.from_numpy(emb32).to(self.device, self.dtype)
         self._mask[idx] = True
         self.mutations += 1
         return slots
@@ -183,9 +231,17 @@ class ChunkStore:
         self._id_to_slot = id_to_slot
         self._free = []
         self._high_water = n
-        emb = torch.zeros_like(self._emb)
-        emb[:n] = self._emb[torch.as_tensor(live, dtype=torch.long, device=self.device)]
-        self._emb = emb
+        idx = torch.as_tensor(live, dtype=torch.long, device=self.device)
+
+        def repack(t: torch.Tensor) -> torch.Tensor:
+            out = torch.zeros_like(t)
+            out[:n] = t[idx]
+            return out
+
+        self._emb = repack(self._emb)
+        if self.quantized:
+            self._scales = repack(self._scales)
+            self._l1 = repack(self._l1)
         self._mask = torch.zeros_like(self._mask)
         self._mask[:n] = True
         self.mutations += 1
@@ -193,10 +249,14 @@ class ChunkStore:
     # ----- persistence helpers -------------------------------------------
 
     def snapshot_host(self):
-        """(embeddings [n, D] f32 numpy, metas) for live chunks, slot-ordered."""
+        """(embeddings [n, D] f32 numpy, metas) for live chunks, slot-ordered;
+        an int8 store's rows dequantised (emb * scale, on the host as the
+        JAX store does), so the saved format is f32 either way."""
         live = sorted(self._id_to_slot.values())
         if not live:
             return np.zeros((0, self.dim), np.float32), []
         idx = torch.as_tensor(live, dtype=torch.long, device=self.device)
         emb = self._emb[idx].float().cpu().numpy()
+        if self.quantized:
+            emb = emb * self._scales[idx].cpu().numpy()
         return emb, [self._meta[s] for s in live]

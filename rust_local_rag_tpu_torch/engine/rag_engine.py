@@ -28,7 +28,14 @@ Lanes:
     RAG_TPU_BATCH_DEVICE_MMR) or on the host over the pool's similarities.
 Rejection: the dense-cosine floor, the judge floor, the query floor on the
 best judged yes-probability, and the joint unseen-term gate (2-way, or
-3-way with the judge-rescue term). There are no int8 or mesh lanes yet.
+3-way with the judge-rescue term).
+
+Int8 capacity mode (RAG_TPU_INT8_CORPUS): an int8 slab, and every lane's
+first stage is ops/hybrid.hybrid_topk_quantized(_packed), exact with
+respect to the dequantised corpus and certified per query; a query whose
+certificate fails is run again through hybrid_topk_dequant_full
+(_int8_escalate, counted in int8_escalations). MMR takes the object lane
+there, on dequantised rows. There are no mesh lanes yet.
 """
 
 from __future__ import annotations
@@ -60,8 +67,11 @@ from rust_local_rag_tpu_torch.models.reranker_service import (
 )
 from rust_local_rag_tpu_torch.ops.hybrid import (
     hybrid_topk,
+    hybrid_topk_dequant_full,
     hybrid_topk_packed,
     hybrid_topk_packed_mmr,
+    hybrid_topk_quantized,
+    hybrid_topk_quantized_packed,
     lex_width_for,
     unpack_topk,
 )
@@ -72,6 +82,7 @@ from rust_local_rag_tpu_torch.ops.mmr import (
     similarity_matrix,
 )
 from rust_local_rag_tpu_torch.ops.native_bm25 import make_lexical_index
+from rust_local_rag_tpu_torch.ops.quantized import gather_dequantized
 
 logger = logging.getLogger(__name__)
 
@@ -141,7 +152,7 @@ class SearchResult:
 class PendingSearch:
     """Dispatched hot-lane search whose result is not fetched yet."""
 
-    out: torch.Tensor  # packed [nq_pad, 4, kb] int32 on the device
+    out: torch.Tensor  # packed [nq_pad, 4, kb] int32 on the device (5: int8 certificate)
     nq: int
     k: int
     floor: float
@@ -224,20 +235,26 @@ class RagEngine:
         device: str | torch.device = "cuda",
     ):
         """The slab is f32 unless RAG_TPU_CORPUS_DTYPE=bf16 (or corpus_dtype)
-        says otherwise. Loads any saved index of the model from data_dir."""
+        says otherwise, and int8 when RAG_TPU_INT8_CORPUS is set. Loads any
+        saved index of the model from data_dir."""
         self.data_dir = data_dir
         self.embedding_service = embedding_service
         self.reranker = reranker
         # object-lane judge passes answered with initial scores instead
         self.rerank_fallbacks = 0
-        self._fallback_lock = threading.Lock()
+        # queries whose int8 certificate failed, run on the full-f32 lane
+        self.int8_escalations = 0
+        self._counts_lock = threading.Lock()
         self.device = resolve_device(device)
         dtype_env = os.environ.get("RAG_TPU_CORPUS_DTYPE")
         if dtype_env == "bf16":
             corpus_dtype = torch.bfloat16
         elif dtype_env == "f32":
             corpus_dtype = torch.float32
-        self.store = ChunkStore(embedding_service.dim, corpus_dtype, device=self.device)
+        self.store = ChunkStore(
+            embedding_service.dim, corpus_dtype, device=self.device,
+            quantized=bool(os.environ.get("RAG_TPU_INT8_CORPUS")),
+        )
         self.lexical_index = make_lexical_index()
         self.document_hashes: Dict[str, str] = {}
         self._needs_reindex = False
@@ -275,6 +292,10 @@ class RagEngine:
             reranker = build_default_reranker(device)
         return cls(data_dir, svc, reranker, device=device)
 
+    def _empty_store(self, dim: int) -> ChunkStore:
+        """An empty store of the resident one's kind (dtype, int8 mode)."""
+        return ChunkStore(dim, self.store.dtype, device=self.device, quantized=self.store.quantized)
+
     def needs_reindex(self) -> bool:
         return self._needs_reindex
 
@@ -298,7 +319,7 @@ class RagEngine:
         if len(self.store):
             self.save_to_disk()
         self.embedding_service = new_service
-        self.store = ChunkStore(new_service.dim, self.store.dtype, device=self.device)
+        self.store = self._empty_store(new_service.dim)
         self.lexical_index.clear()
         self.document_hashes = {}
         self._needs_reindex = False
@@ -450,23 +471,30 @@ class RagEngine:
     def _dispatch(
         self, queries: List[str], top_k: int, k: int, resolved: ResolvedWeights, with_sims: bool = False
     ):
-        """First stage of a batch: the packed [Q, 4, kb] result, or with
-        with_sims the five unpacked outputs of hybrid_topk (the last the
-        [Q, kb, kb] candidate similarities)."""
+        """First stage of a batch: the packed [Q, 4, kb] result ([Q, 5, kb]
+        on an int8 store, channel 4 the certificate), or with with_sims the
+        unpacked outputs of hybrid_topk (hybrid_topk_quantized: the
+        certificate fifth), the last the [Q, kb, kb] candidate
+        similarities."""
         nq_pad = _bucket_batch(len(queries))
         q_emb = self._prep_queries(queries, nq_pad)
         lex_slots, lex_vals = self._prep_lexical(queries, top_k, nq_pad)
+        store = self.store
         args = (
             q_emb,
-            self.store.corpus(),
-            self.store.valid_mask(),
+            store.corpus(),
+            *((store.scales(), store.l1()) if store.quantized else ()),
+            store.valid_mask(),
             torch.as_tensor(lex_slots, device=self.device),
             torch.as_tensor(lex_vals, device=self.device),
             self._f32(resolved.embedding),
             self._f32(resolved.lexical),
             _bucket_k(k),
         )
-        out = hybrid_topk(*args, with_sims=True) if with_sims else hybrid_topk_packed(*args)
+        if store.quantized:
+            out = hybrid_topk_quantized(*args, with_sims=True) if with_sims else hybrid_topk_quantized_packed(*args)
+        else:
+            out = hybrid_topk(*args, with_sims=True) if with_sims else hybrid_topk_packed(*args)
         return out, q_emb, lex_slots, lex_vals
 
     def search_batch(
@@ -501,7 +529,7 @@ class RagEngine:
         top_k = max(top_k, 1)
         nq = len(queries)
         initial_k = min(len(self.store), max(top_k * 3, top_k))
-        out, _, _, _ = self._dispatch(queries, top_k, initial_k, resolved, with_sims=collect_sims)
+        out, q_emb, lex_slots, lex_vals = self._dispatch(queries, top_k, initial_k, resolved, with_sims=collect_sims)
         # Only rows that can be emitted are materialised: the whole pool
         # when the judge's score enters the blend, else the top_k head
         # (device rows are sorted by combined score, and at reranker weight
@@ -510,11 +538,23 @@ class RagEngine:
         reranking = self.reranker is not None and use_reranker
         head_only = not reranking or (resolved.reranker == 0.0 and resolved.initial > 0.0)
         need_rows = min(top_k, initial_k) if head_only else initial_k
+        sims_b = flags = None
         if collect_sims:
-            vals_b, emb_b, lex_b, idx_b, sims_b = (x[:nq].cpu().numpy() for x in out)
-            vals_b, emb_b, lex_b, idx_b = (x[:, :initial_k] for x in (vals_b, emb_b, lex_b, idx_b))
+            host = [x[:nq].cpu().numpy() for x in out]
+            sims_b = host.pop()
+            vals_b, emb_b, lex_b, idx_b = (x[:, :initial_k] for x in host[:4])
+            if len(host) > 4:
+                flags = host[4]
         else:
-            vals_b, emb_b, lex_b, idx_b = unpack_topk(out.cpu().numpy(), nq, initial_k)
+            arr = out.cpu().numpy()
+            vals_b, emb_b, lex_b, idx_b = unpack_topk(arr, nq, initial_k)
+            if arr.shape[1] > 4:
+                flags = arr[:nq, 4, 0] > 0
+        if flags is not None and not flags.all():
+            vals_b, emb_b, lex_b, idx_b, sims_b = self._int8_escalate(
+                q_emb, lex_slots, lex_vals, resolved, _bucket_k(initial_k), np.flatnonzero(~flags),
+                (vals_b, emb_b, lex_b, idx_b), initial_k, sims_b=sims_b,
+            )
         vals_l = vals_b[:, :need_rows].tolist()
         emb_l = emb_b[:, :need_rows].tolist()
         lex_l = lex_b[:, :need_rows].tolist()
@@ -592,7 +632,7 @@ class RagEngine:
                 per_query_reranked = self._rerank_flat(queries, flat_inputs, nq)
             except Exception:  # noqa: BLE001 - the reference degrades to initial scores (rag_engine.rs:586-597)
                 logger.warning("Reranker failed, falling back to initial scores", exc_info=True)
-                with self._fallback_lock:
+                with self._counts_lock:
                     self.rerank_fallbacks += 1
 
         outputs = [
@@ -641,6 +681,44 @@ class RagEngine:
             return outputs
         rank_maps = [{c["meta"].id: c["rank"] for c in per_query_candidates[qi]} for qi in range(nq)]
         return outputs, (sims_b, rank_maps)
+
+    def _int8_escalate(
+        self, q_emb: torch.Tensor, lex_slots: np.ndarray, lex_vals: np.ndarray, resolved: ResolvedWeights,
+        k: int, fail_rows: np.ndarray, arrays, trim_k: int, sims_b: Optional[np.ndarray] = None,
+    ):
+        """Run the queries whose int8 certificate failed (near-ties at the
+        quantisation boundary) again through the unconditionally exact
+        full-f32 lane (hybrid_topk_dequant_full) and patch their rows, and
+        with sims_b their candidate similarities over dequantised rows,
+        into the batch's arrays -> (vals, emb, lex, idx, sims_b). The
+        failing rows pad to a power of two, as a batch does."""
+        nf = len(fail_rows)
+        logger.info("int8 exactness certificate failed for %d/%d queries; "
+                    "escalating to the full-f32 dequantized lane", nf, arrays[0].shape[0])
+        with self._counts_lock:
+            self.int8_escalations += nf
+        rows_idx = np.zeros(_bucket_batch(nf), dtype=np.int64)
+        rows_idx[:nf] = fail_rows
+        out = hybrid_topk_dequant_full(
+            q_emb[torch.as_tensor(rows_idx, device=q_emb.device)],
+            self.store.corpus(),
+            self.store.scales(),
+            self.store.valid_mask(),
+            torch.as_tensor(lex_slots[rows_idx], device=self.device),
+            torch.as_tensor(lex_vals[rows_idx], device=self.device),
+            self._f32(resolved.embedding),
+            self._f32(resolved.lexical),
+            k,
+            with_sims=sims_b is not None,
+        )
+        fixed = [x.cpu().numpy() for x in out]
+        planes = [np.array(a) for a in arrays]
+        for plane, f in zip(planes, fixed):
+            plane[fail_rows] = f[:nf, :trim_k]
+        if sims_b is not None:
+            sims_b = np.array(sims_b)
+            sims_b[fail_rows] = fixed[4][:nf]
+        return (*planes, sims_b)
 
     def _rerank_flat(self, queries: List[str], flat_inputs, nq: int) -> List[List[RerankedResult]]:
         """Score every (query, candidate) pair in one forward; regroup and
@@ -753,8 +831,12 @@ class RagEngine:
         return out
 
     def _gather_rows(self, slots: np.ndarray) -> torch.Tensor:
-        """The slab rows of `slots` on the device (f32 or bf16 slab)."""
-        return self.store.corpus()[torch.as_tensor(slots, device=self.device).long()]
+        """The slab rows of `slots` on the device (f32 or bf16 slab; an int8
+        slab's rows dequantised to f32)."""
+        idx = torch.as_tensor(slots, device=self.device).long()
+        if self.store.quantized:
+            return gather_dequantized(self.store.corpus(), self.store.scales(), idx)
+        return self.store.corpus()[idx]
 
     def _mmr_many(
         self, pooled: List[List[SearchResult]], top_k: int, diversity_factor: float
@@ -866,9 +948,10 @@ class RagEngine:
         )
 
     def supports_columnar_mmr(self) -> bool:
-        """The MMR hot lane serves every store the port has (f32 and bf16
-        slabs; the JAX package sends its int8 store to the object lane)."""
-        return True
+        """The MMR hot lane serves f32 and bf16 slabs. An int8 store keeps
+        the object lane, as in the JAX package: its escalation gives
+        score-ordered planes, which cannot patch an MMR-ordered fetch."""
+        return not self.store.quantized
 
     def dispatch_search_mmr(
         self,
@@ -930,9 +1013,19 @@ class RagEngine:
         )
 
     def fetch_columnar(self, pending: PendingSearch) -> ColumnarResults:
-        """Second half: one device->host copy of the packed result; the
-        joint unseen-term gate invalidates rejected rows."""
-        vals, emb, lex, idx = unpack_topk(pending.out.cpu().numpy(), pending.nq, pending.k)
+        """Second half: one device->host copy of the packed result. An int8
+        lane's certificate plane is read here and failing queries
+        escalate (_int8_escalate); the joint unseen-term gate invalidates
+        rejected rows."""
+        arr = pending.out.cpu().numpy()
+        vals, emb, lex, idx = unpack_topk(arr, pending.nq, pending.k)
+        if arr.shape[1] > 4:
+            flags = arr[: pending.nq, 4, 0] > 0
+            if not flags.all():
+                vals, emb, lex, idx, _ = self._int8_escalate(
+                    pending.q_emb, pending.lex_slots, pending.lex_vals, pending.resolved, pending.kb,
+                    np.flatnonzero(~flags), (vals, emb, lex, idx), pending.k,
+                )
         if pending.unseen is not None:
             nq = pending.nq
             finite = np.isfinite(vals[:nq]) & (idx[:nq] >= 0)
@@ -1120,22 +1213,35 @@ class RagEngine:
     def get_embedding_candidates(self, query: str, count: int) -> List[RerankerCandidate]:
         """The `count` nearest chunks by dense score alone, as reranker
         candidates (calibrate_reranker; rag_engine.rs:415-460): hybrid_topk
-        with no lexical hits at weights 1 / 0."""
+        (hybrid_topk_quantized on an int8 store, escalating a failed
+        certificate) with no lexical hits at weights 1 / 0."""
         if len(self.store) == 0:
             return []
         q = _normalize_vec(self.embedding_service.get_query_embeddings([query])[0])
         k = min(count, len(self.store))
+        kb = _bucket_k(k)
         width = lex_width_for(0)
-        vals, _, _, idx = hybrid_topk(
-            torch.as_tensor(q[None, :], device=self.device),
-            self.store.corpus(),
-            self.store.valid_mask(),
-            torch.full((1, width), -1, dtype=torch.int32, device=self.device),
-            torch.zeros((1, width), dtype=torch.float32, device=self.device),
+        lex_slots = np.full((1, width), -1, dtype=np.int32)
+        lex_vals = np.zeros((1, width), dtype=np.float32)
+        q_t = torch.as_tensor(q[None, :], device=self.device)
+        store = self.store
+        res = (hybrid_topk_quantized if store.quantized else hybrid_topk)(
+            q_t,
+            store.corpus(),
+            *((store.scales(), store.l1()) if store.quantized else ()),
+            store.valid_mask(),
+            torch.as_tensor(lex_slots, device=self.device),
+            torch.as_tensor(lex_vals, device=self.device),
             self._f32(1.0),
             self._f32(0.0),
-            _bucket_k(k),
+            kb,
         )
+        vals, emb, lex, idx = (x.cpu().numpy() for x in res[:4])
+        if store.quantized and not bool(res[4][0]):
+            vals, _, _, idx, _ = self._int8_escalate(
+                q_t, lex_slots, lex_vals, ResolvedWeights(embedding=1.0, lexical=0.0, reranker=0.0, initial=1.0),
+                kb, np.array([0]), (vals, emb, lex, idx), kb,
+            )
         out = []
         for v, slot in zip(vals[0, :k].tolist(), idx[0, :k].tolist()):
             if slot < 0 or not np.isfinite(v):
@@ -1160,7 +1266,8 @@ class RagEngine:
         self.search_with_diversity_batch([f"warmup query {i}" for i in range(8)], 5, 0.3)
         for pending in (self.dispatch_search(["warmup query"], 5),
                         self.dispatch_search_mmr(["warmup query"], 5, 0.3)):
-            self.fetch_columnar(pending)
+            if pending is not None:  # no MMR hot lane on an int8 store
+                self.fetch_columnar(pending)
         logger.info("compiled %d BM25 posting snapshots; search lanes warmed up in %.2f s",
                     compiled, time.monotonic() - t0)
 
@@ -1170,6 +1277,9 @@ class RagEngine:
         return self.store.document_names()
 
     def get_stats(self) -> dict:
+        """rag_engine.rs:862-881 (+ search_mode): "exact" on every store,
+        the int8 one included (exact with respect to its dequantised rows,
+        by the certificate and its escalation)."""
         return {
             "documents": len(self.list_documents()),
             "chunks": len(self.store),
@@ -1216,7 +1326,7 @@ class RagEngine:
                 self._needs_reindex = True
                 return
             if len(self.store):
-                self.store = ChunkStore(self.store.dim, self.store.dtype, device=self.device)
+                self.store = self._empty_store(self.store.dim)
                 self.lexical_index.clear()
             slots = self.store.add_chunks(st.metas, st.embeddings)
             for m, slot in zip(st.metas, slots):
