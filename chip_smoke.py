@@ -179,7 +179,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bound, peak memory above the slab, the _int_mm kernels torch.profiler
    sees; the band planted once more, whose query fails its certificate
    and escalates at Q 1 (timed; under 4 GB above the slab); the bf16
-   masked kernel at the same N on a slab of its own.
+   masked kernel at the same N on a slab of its own;
+10. the slice of SRX, the PDF tiers, profiling, the eval harness and the
+   benches: trace (the last phase of the slice, on the served index: one
+   utils/profiling.device_trace window over 5 hot-lane bursts and one
+   judged burst of 16 queries in the default configuration, the device's
+   busy and idle share of each lane's span and of the window, the top
+   device operations and the longest idle gaps with the host operation
+   over each; entry_point has already made one POST /capture to the
+   RAG_TPU_PROFILE_PORT listener of its `python -m` server while it
+   answered searches, whose trace must hold the server's kernels); srx
+   (which splitter RAG_TPU_SRX_FILE gives on this host, and chunk_text
+   under tests/test_srx_engine.py's ruleset against that splitter);
+   pdf_tiers (the pdftext library's build; the native tier against the
+   built-in one, byte for byte, on the smoke's PDFs and the eval
+   corpus's; ms a document each; pdftotext on PATH or not); quality
+   (evaluation.quality --heldout against a `python -m` server on the
+   card, RAG_TPU_FUSED_ATTN unset: each config's summary and the queries
+   that differ from the JAX package's round-5 reports); bench (at
+   bench.py's N 1,245,184 with 4 chained steps; every line's last step
+   against torch.topk of the plain plane) and bench_server (131,072
+   chunks, 4 s a point), each printed as its program's JSON line.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -2267,8 +2287,8 @@ BAD_SEARCH = [b"{not json", b"[1]", b'{"query": "x", "top_k": "many"}', b'{"quer
 
 
 class Http:
-    """One keep-alive client connection (http.client: the card's machine
-    has no requests)."""
+    """One keep-alive client connection (http.client: the port imports no
+    requests)."""
 
     def __init__(self, port: int):
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
@@ -2515,8 +2535,9 @@ def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chun
     disk must then hold every chunk the server held."""
     port = free_port()
     logs = os.path.join(tmp, "entry_logs")
+    profile_port = free_port()
     env = dict(os.environ, DATA_DIR=data_dir, DOCUMENTS_DIR=os.path.join(tmp, "entry_docs"), LOG_DIR=logs,
-               MCP_HTTP_BIND=f"127.0.0.1:{port}",
+               MCP_HTTP_BIND=f"127.0.0.1:{port}", RAG_TPU_PROFILE_PORT=str(profile_port),
                PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     env.pop("RAG_TPU_PLATFORM", None)
     out_path = os.path.join(tmp, "entry_out.txt")
@@ -2533,6 +2554,7 @@ def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chun
             key = lambda r: (r["chunk_id"], r["score"], r["embedding_score"], r["lexical_score"])  # noqa: E731
             same_topk([key(r) for r in a[2]["results"]], [key(r) for r in b[2]["results"]], SERVER_TOL,
                       "entry point vs in-process server")
+            capture = entry_capture(port, profile_port, query, os.path.join(tmp, "entry_traces"))
             full = persistence.load_index(data_dir, get_embedding_model()).state
             behind = persistence.IndexState(model=full.model, embeddings=full.embeddings[:DISK_BEHIND],
                                             metas=full.metas[:DISK_BEHIND], document_hashes=full.document_hashes)
@@ -2564,7 +2586,39 @@ def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chun
         raise AssertionError("entry point: the index on disk after the shutdown is not the server's")
     return {"entry_ready_s": ready_s, "entry_total_s": time.perf_counter() - t0, "entry_sigterm_to_exit_s": stop_s,
             "entry_exit_code": code, "entry_same_answer": a[2] == b[2], "entry_flush": flush[0],
-            "entry_disk_behind_chunks": DISK_BEHIND, "entry_index_loads_after_exit": len(state.metas)}
+            "entry_disk_behind_chunks": DISK_BEHIND, "entry_index_loads_after_exit": len(state.metas),
+            "entry_capture": capture}
+
+
+def entry_capture(port: int, profile_port: int, query: str, log_dir: str, ms: float = 1500) -> dict:
+    """POST /capture to the entry point's RAG_TPU_PROFILE_PORT listener
+    while a thread sends it hot-lane searches: the trace must hold the
+    server's device kernels."""
+    stop = threading.Event()
+    sent = []
+
+    def load():
+        c = Http(port)
+        while not stop.is_set():
+            sent.append(c.call("POST", "/search", {"query": query, "top_k": TOP_K, **HTTP_LANES["hot"]})[0])
+        c.close()
+
+    t = threading.Thread(target=load, daemon=True)
+    t.start()
+    try:
+        status, _, body = Http(profile_port).call("POST", "/capture", {"duration_ms": ms, "log_dir": log_dir})
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    if status != 200:
+        raise AssertionError(f"POST /capture answered {status}: {body}")
+    with open(body["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    if kernels == 0 or set(sent) != {200}:
+        raise AssertionError(f"the captured trace holds {kernels} kernels ({len(sent)} searches: {set(sent)})")
+    return {"duration_ms": body["duration_ms"], "events": body["events"], "kernels": kernels,
+            "searches_during": len(sent), "trace_bytes": os.path.getsize(body["trace"])}
 
 
 def run_server(engine, card: str, seconds: dict, tmp: str, pdfs: dict, rng, probs) -> dict:
@@ -2959,6 +3013,246 @@ def gate_check(card: str, tmp: str) -> dict:
         return gate
     finally:
         stop_runtime(ctx, server, thread)
+
+
+# ------------------------- SRX, PDF tiers, trace, quality, the benches ----
+
+
+# tests/test_srx_engine.py's _MINI ruleset: "Mr. " guarded, any [.!?] + space a break
+SRX_MINI = """<?xml version="1.0" encoding="UTF-8"?>
+<srx xmlns="http://www.lisa.org/srx20" version="2.0">
+<header segmentsubflows="yes" cascade="yes"></header>
+<body>
+<languagerules>
+<languagerule languagerulename="Guard">
+<rule break="no"><beforebreak>\\bMr\\.\\s</beforebreak><afterbreak></afterbreak></rule>
+</languagerule>
+<languagerule languagerulename="Breaker">
+<rule break="yes"><beforebreak>[\\.!?]\\s</beforebreak><afterbreak></afterbreak></rule>
+</languagerule>
+<languagerule languagerulename="FrenchOnly">
+<rule break="no"><beforebreak>\\bM\\.\\s</beforebreak><afterbreak></afterbreak></rule>
+</languagerule>
+</languagerules>
+<maprules>
+<languagemap languagepattern=".*" languagerulename="Guard"></languagemap>
+<languagemap languagepattern="(FR|fr).*" languagerulename="FrenchOnly"></languagemap>
+<languagemap languagepattern=".*" languagerulename="Breaker"></languagemap>
+</maprules>
+</body>
+</srx>
+"""
+SRX_TEXT = ("Prof. Smith arrived at 3 p.m. today. Mr. Jones left early. She stayed! Why not? M. Dupont signed "
+            "the contract.\n\nValues rose by 3.5 percent. The file is config.yaml here. We tried e.g. apples. "
+            "Dr. Who came back. It trailed off... and resumed.")
+TRACE_BURSTS = 5  # 16-query hot-lane bursts in the trace window, then one judged burst
+BENCH_STEPS = 4  # bench's chained steps in the smoke (the program's default is 16)
+BENCH_DOCS = 60  # bench's full-pipeline documents in the smoke (default 300)
+BENCH_SERVER_N = 2 * N_SLAB  # bench_server's chunks in the smoke (the slab runs the masked kernel)
+BENCH_SERVER_CLIENTS = (16, 64)
+BENCH_SERVER_SECONDS = 4.0
+
+
+def run_srx(card: str, tmp: str) -> dict:
+    """Which splitter RAG_TPU_SRX_FILE gives on this host (the ruleset needs
+    the `regex` module), and chunk_text under it against that splitter."""
+    from rust_local_rag_tpu_torch.ingest import chunking, srx
+
+    path = os.path.join(tmp, "mini.srx")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(SRX_MINI)
+    builtin = chunking.split_sentences(SRX_TEXT)
+    builtin_chunks = [c.text for c in chunking.chunk_text(SRX_TEXT, 12)]
+    with env_set("RAG_TPU_SRX_FILE", path):
+        seg = srx.load_segmenter()
+        got = chunking.split_sentences(SRX_TEXT)
+        chunks = [c.text for c in chunking.chunk_text(SRX_TEXT, 12)]
+    if srx._HAVE_REGEX:
+        if seg is None or len(seg) != 2:
+            raise AssertionError(f"srx: the ruleset did not load ({seg})")
+        want = [x for x in (p.strip() for p in seg.split(SRX_TEXT)) if x]
+        real_split = chunking.split_sentences
+        chunking.split_sentences = lambda t: [x for x in (p.strip() for p in seg.split(t)) if x]
+        try:
+            want_chunks = [c.text for c in chunking.chunk_text(SRX_TEXT, 12)]
+        finally:
+            chunking.split_sentences = real_split
+        splitter = "srx ruleset"
+        if got == builtin:
+            raise AssertionError("srx: the ruleset gave the built-in splitter's sentences")
+    else:
+        if seg is not None:
+            raise AssertionError("srx: a segmenter loaded without the regex module")
+        want, want_chunks, splitter = builtin, builtin_chunks, "built-in (no regex module on this host)"
+    if got != want or chunks != want_chunks:
+        raise AssertionError(f"srx: {got} != {want} or {chunks} != {want_chunks}")
+    out = {"srx_splitter": splitter, "regex_module": srx._HAVE_REGEX, "sentences": len(got),
+           "builtin_sentences": len(builtin), "chunks": len(chunks), "first_sentences": got[:3], "card": card}
+    log(out)
+    return out
+
+
+def run_pdf_tiers(card: str, pdfs: dict, built: dict) -> dict:
+    """The native tier (csrc/pdftext.cpp) against the built-in one, byte for
+    byte, on the smoke's PDFs and the eval corpus's (authored and
+    distractors); ms a document for each tier; pdftotext's presence."""
+    from eval_harness.corpus import DOCS, _ascii, _make_pdf, load_distractors
+    from rust_local_rag_tpu_torch.ingest import pdf as pdf_tiers
+
+    docs = list(pdfs.values()) + [_make_pdf([_ascii(p) for p in d["pages"]]) for d in DOCS + load_distractors()]
+    for i, data in enumerate(docs):
+        nat, py = pdf_tiers._native_extract(data), pdf_tiers._builtin_extract(data)
+        if nat is None or nat != py:
+            raise AssertionError(f"pdf_tiers: document {i}: the native tier's text differs from the built-in's")
+    times = {}
+    for name, fn in (("native", pdf_tiers._native_extract), ("builtin", pdf_tiers._builtin_extract)):
+        t0 = time.perf_counter()
+        for data in docs:
+            fn(data)
+        times[f"{name}_ms_per_document"] = (time.perf_counter() - t0) * 1e3 / len(docs)
+    which = shutil.which("pdftotext")
+    if which:
+        t0 = time.perf_counter()
+        for data in pdfs.values():
+            pdf_tiers._pdftotext_extract(data)
+        times["pdftotext_ms_per_document"] = (time.perf_counter() - t0) * 1e3 / len(pdfs)
+    res = built["pdftext"]
+    out = {"pdftext_build": {"library": res.path.split("/")[-1], "seconds": res.seconds,
+                             "compiler_output": res.log.strip()[-500:]},
+           "documents": len(docs), "smoke_pdfs": len(pdfs), "byte_identical": True, **times,
+           "pdftotext_on_path": which, "card": card}
+    log(out)
+    return out
+
+
+def run_trace(engine, batcher, card: str, tmp: str, rng, probs, capture: dict) -> dict:
+    """One device_trace window over TRACE_BURSTS 16-query hot-lane bursts
+    and one judged burst through the batcher on the served index, in the
+    default configuration (RAG_TPU_FUSED_ATTN unset): the device's busy and
+    idle share of each lane's span and of the window, the device
+    operations that took the most time, and the longest idle gaps with the
+    host operation over each. Then the entry point's POST /capture."""
+    from torch.profiler import record_function
+
+    from rust_local_rag_tpu_torch.utils.profiling import device_trace, summarize
+
+    if os.environ.get("RAG_TPU_FUSED_ATTN"):
+        raise AssertionError("trace: RAG_TPU_FUSED_ATTN is set; the window is the default configuration")
+    for lane in ("hot", "judged"):  # each lane warm before the window
+        batcher_burst(batcher, lane, queries_for(rng, 16, probs))
+    torch.cuda.synchronize()
+    # the lanes' host stages, annotated in the trace for the window only,
+    # so that each idle gap names the stage the batcher's thread was in
+    judge = engine.reranker._model
+    stages = [(engine, "_prep_queries", "query encoder"), (engine, "_prep_lexical", "BM25"),
+              (engine, "_unseen_gate", "unseen gate"), (engine, "_dispatch", "first stage"),
+              (engine, "fetch_columnar", "fetch"), (engine, "judge_columnar", "judge prompts"),
+              (judge, "encode", "head/tail tokenising"), (judge, "dispatch_prompts", "judge forward"),
+              (engine, "fetch_judged", "judge fetch + gate"), (batcher, "_payloads", "serialize"),
+              (batcher, "_answer", "answer futures")]
+
+    def annotated(fn, label):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    score_segmax.launches = fused_attention.launches = 0
+    for obj, attr, label in stages:
+        setattr(obj, attr, annotated(getattr(obj, attr), label))
+    try:
+        with device_trace(os.path.join(tmp, "traces")) as trace:
+            with record_function("smoke_hot_bursts"):
+                for _ in range(TRACE_BURSTS):
+                    batcher_burst(batcher, "hot", queries_for(rng, 16, probs))
+            with record_function("smoke_judged_burst"):
+                batcher_burst(batcher, "judged", queries_for(rng, 16, probs))
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, _ in stages:
+            delattr(obj, attr)
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+    spans = {e["name"]: (float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in trace.events
+             if e.get("cat") == "user_annotation" and e.get("name", "").startswith("smoke_")}
+    if set(spans) != {"smoke_hot_bursts", "smoke_judged_burst"}:
+        raise AssertionError(f"trace: the lanes' spans are not in the trace ({sorted(spans)})")
+    whole = summarize(trace.events, ignore=tuple(spans))
+    lanes = {"hot": summarize(trace.events, window=spans["smoke_hot_bursts"], ignore=tuple(spans)),
+             "judged": summarize(trace.events, window=spans["smoke_judged_burst"], ignore=tuple(spans))}
+    # the host stages' time on the batcher's threads, summed over the window
+    stage_ms = {}
+    for e in trace.events:
+        if e.get("cat") == "user_annotation" and e.get("name") in {label for _, _, label in stages}:
+            stage_ms[e["name"]] = stage_ms.get(e["name"], 0.0) + float(e["dur"]) / 1e3
+    if whole["device_ops"] == 0 or launches["score_segmax_masked"] <= 0:
+        raise AssertionError(f"trace: {whole['device_ops']} device operations, launches {launches}")
+    out = {"trace_file_bytes": os.path.getsize(trace.path), "trace_events": len(trace.events), "launches": launches,
+           "window": whole, **{f"{lane}_lane": v for lane, v in lanes.items()},
+           "lane_idle_share": {lane: v["device_idle_share"] for lane, v in lanes.items()},
+           "host_stage_ms": stage_ms,
+           "entry_point_capture": capture, "card": card}
+    log(out)
+    return out
+
+
+def run_quality(card: str, tmp: str) -> dict:
+    """evaluation.quality --heldout against the port's server on the card,
+    default configuration: each config's summary and the queries whose
+    hit_rate or mrr differ from the JAX package's round-5 report."""
+    from rust_local_rag_tpu_torch.evaluation import quality
+
+    if os.environ.get("RAG_TPU_FUSED_ATTN"):
+        raise AssertionError("quality: RAG_TPU_FUSED_ATTN is set; the reports ran without it")
+    res = quality.run_quality(os.path.join(tmp, "quality_reports"), heldout=True, device="cuda", log=log)
+    want = {"baseline": 153, "embedding_only": 153, "bm25_only": 153, "baseline_heldout": 157}
+    for name, n in want.items():
+        summ = res["configs"][name]["summary"]
+        if summ["n_queries"] != n or not 0.0 <= summ["hit_rate_mean"] <= 1.0:
+            raise AssertionError(f"quality {name}: {summ}")
+    out = {"quality_table": {name: {"lane": r["lane"], **{k: r["summary"][k] for k in (
+        "hit_rate_mean", "mrr_mean", "rejection_success_rate")}, "jax_round5": {k: r["jax_summary"][k] for k in (
+            "hit_rate_mean", "mrr_mean", "rejection_success_rate")}, "differing_queries": len(r["diffs"])}
+        for name, r in res["configs"].items()}, "server": {k: res[k] for k in ("ready_s", "reindex_s", "stats")},
+        "card": card}
+    log(out)
+    return out
+
+
+def run_bench(card: str) -> tuple:
+    """python -m rust_local_rag_tpu_torch.bench at bench.py's N with
+    BENCH_STEPS chained steps: every line's last step within SCORE_TOL of
+    torch.topk over the plain plane. -> (its JSON line, launches)."""
+    from rust_local_rag_tpu_torch import bench
+
+    score_segmax.launches = fused_score_segmax.launches = 0
+    res = bench.run(n=N_BENCH, steps=BENCH_STEPS, device="cuda", ingest_docs=BENCH_DOCS)
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_score_segmax": fused_score_segmax.launches}
+    for shape, rows in res["lines"].items():
+        for name, row in rows.items():
+            if not row["max_abs_err"] <= SCORE_TOL or row["same_index_share"] < 0.99:
+                raise AssertionError(f"bench {shape} {name}: {row}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"bench launched {launches}")
+    print(json.dumps({"bench": res, "launches": launches, "card": card}), flush=True)
+    return res, launches
+
+
+def run_bench_server(card: str) -> tuple:
+    """python -m rust_local_rag_tpu_torch.bench_server at BENCH_SERVER_N
+    chunks for BENCH_SERVER_SECONDS a point. -> (its JSON line, launches)."""
+    from rust_local_rag_tpu_torch import bench_server
+
+    score_segmax.launches = fused_attention.launches = 0
+    res = bench_server.measure_server_qps(n_chunks=BENCH_SERVER_N, clients=BENCH_SERVER_CLIENTS,
+                                          seconds=BENCH_SERVER_SECONDS, device="cuda", pipelined=(128,), quiet=True)
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+    for lane in [*res["client_sweep"].values(), res["judged_http"]]:
+        if lane["non_200"] or lane["requests"] <= 0:
+            raise AssertionError(f"bench_server lane {lane}")
+    if launches["score_segmax_masked"] <= 0:
+        raise AssertionError(f"bench_server launched {launches}")
+    print(json.dumps({"bench_server": res, "launches": launches, "card": card}), flush=True)
+    return res, launches
 
 
 # ----------------------------------------------------------------- main ----
@@ -3405,14 +3699,33 @@ def main(argv=None) -> int:
                  "max_ms": max(lat), "reps": len(lat), "card": card})
     with phase("int8_scale", card, seconds):
         run_int8_scale(args.seed, dev, card)
+    late = tempfile.mkdtemp(prefix="rag_port_smoke_late_")
+    try:
+        with phase("srx", card, seconds):
+            run_srx(card, late)
+        with phase("pdf_tiers", card, seconds):
+            run_pdf_tiers(card, result["pdfs"], built)
+        with phase("quality", card, seconds):
+            run_quality(card, late)
+        with phase("bench", card, seconds):
+            _, bench_launches = run_bench(card)
+        with phase("bench_server", card, seconds):
+            _, server_launches = run_bench_server(card)
+    finally:
+        shutil.rmtree(late, ignore_errors=True)
     log({"phase_seconds": seconds, "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
                       "f32_wide": result["f32_wide"]["launches"], "int8": result["int8"]["hot"]["score_segmax_masked"],
                       "mmr": result["mmr"]["launches"],
                       **{lane: x["score_segmax_masked"] for lane, x in rr["launches"].items()},
-                      "http": srv["launches"]["score_segmax_masked"]}
+                      "http": srv["launches"]["score_segmax_masked"],
+                      "trace": result["trace"]["launches"]["score_segmax_masked"],
+                      "bench": bench_launches["score_segmax_masked"],
+                      "bench_server": server_launches["score_segmax_masked"]}
     log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
+    log({"new_path_launches": {"trace": result["trace"]["launches"], "bench": bench_launches,
+                               "bench_server": server_launches}, "card": card})
     bd, lx, tk = result["breakdown"], result["lexical"], result["tokenizer"]
     log({"host_libs": [{
         "name": "lexical",
@@ -3460,7 +3773,8 @@ def main(argv=None) -> int:
         "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES,
         "launches": (sum(x["fused_attention"] for x in rr["launches"].values()) + srv["launches"]["fused_attention"]
-                     + result["int8"]["rerank"]["fused_attention"]),
+                     + result["int8"]["rerank"]["fused_attention"] + result["trace"]["launches"]["fused_attention"]
+                     + server_launches["fused_attention"]),
         "max_abs_err": max_err_attn,
         "ms": attn_main["ms"],
         "plain_ms": attn_main["plain_ms"],
@@ -3472,7 +3786,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": UNMASKED_REPLACES,
-        "launches": topk_launches + exp_launches["fused_score_segmax"],
+        "launches": topk_launches + exp_launches["fused_score_segmax"] + bench_launches["fused_score_segmax"],
         "max_abs_err": max_err_unmasked,
         "ms": unmasked_main["ms"],
         "plain_ms": unmasked_main["plain_ms"],
@@ -3659,6 +3973,9 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
             log({"duplicates_added": len(slots), "live_chunks": len(engine.store)})
         mmr = run_mmr(engine, batcher, card, seconds, rng_host, probs, tmp, texts[:N_DUPLICATES])
         server = run_server(engine, card, seconds, tmp, pdfs, np.random.default_rng([args.seed, 10]), probs)
+        with phase("trace", card, seconds):
+            trace = run_trace(engine, batcher, card, tmp, np.random.default_rng([args.seed, 13]), probs,
+                              server["entry_point"]["entry_capture"])
     finally:
         batcher.stop()
         engine.embedding_service.close()
@@ -3667,7 +3984,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
             "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
             "lexical": lex_stats, "tokenizer": tok_stats, "server": server, "bf16_wide": wide,
-            "f32_wide": f32_wide, "int8": int8}
+            "f32_wide": f32_wide, "int8": int8, "pdfs": pdfs, "trace": trace}
 
 
 if __name__ == "__main__":

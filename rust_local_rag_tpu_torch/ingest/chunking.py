@@ -1,5 +1,4 @@
-"""Sentence-aware chunking (copy of rust_local_rag_tpu/ingest/chunking.py,
-built-in sentence splitter only).
+"""Sentence-aware chunking (copy of rust_local_rag_tpu/ingest/chunking.py).
 
 Re-implements the reference's ingest text pipeline (rag_engine.rs:1102-1357):
 
@@ -166,8 +165,12 @@ def split_sentences(text: str) -> List[str]:
     ruleset (segment.srx:1104-1418; rule classes documented at
     _ABBREV_ALWAYS/_ABBREV_SOFT above).
 
-    This is the JAX package's built-in splitter; its optional SRX ruleset
-    mode (RAG_TPU_SRX_FILE) is not part of this port yet.
+    Full-ruleset mode: when RAG_TPU_SRX_FILE points at an SRX 2.0 document
+    the compiled ruleset segments instead (ingest/srx.py), reproducing the
+    reference's exact rule resolution including the srx crate's unanchored
+    language matching quirk. The built-in splitter below remains the
+    default: it is ~40x faster on the host ingest path and covers the
+    same rule classes.
 
     SRX's catch-all break rules fire after any terminal punctuation run
     followed by whitespace — including before a lowercase continuation —
@@ -176,6 +179,11 @@ def split_sentences(text: str) -> List[str]:
     stays joined ("trailed off ... and resumed"), where raw SRX would
     split; PDF text is full of mid-sentence ellipses.
     """
+    from rust_local_rag_tpu_torch.ingest import srx as _srx
+
+    seg = _srx.load_segmenter()
+    if seg is not None:
+        return [s for s in (p.strip() for p in seg.split(text)) if s]
     out: List[str] = []
     n = len(text)
     start = 0

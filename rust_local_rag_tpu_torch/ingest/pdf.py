@@ -1,17 +1,38 @@
-"""Built-in PDF text extraction.
+"""PDF text extraction with the JAX package's tiered strategy (copy of
+rust_local_rag_tpu/ingest/pdf.py).
 
-Copy of the pure-Python tier of rust_local_rag_tpu/ingest/pdf.py: an
-xref-free object scan, FlateDecode, and the content-stream text operators.
+The reference tries a pure-Rust extractor (lopdf) first and falls back to the
+`pdftotext` binary (rag_engine.rs:949-1090). Here tier 0 is the native C++
+extractor (csrc/pdftext.cpp, a copy of native/pdftext.cpp built with g++ by
+kernels/build.py; byte-identical output to tier 1), tier 1 the built-in
+pure-Python extractor (an xref-free object scan, FlateDecode, the
+content-stream text operators), and tier 2 shells out to
+`pdftotext -layout -enc UTF-8` when the binary exists.
+
+RAG_TPU_NATIVE_PDF=0 (or false) turns tier 0 off. Otherwise a library that
+fails to build or load raises, as the native BM25 index does: the JAX
+package's quiet `_NATIVE_BROKEN` path, which goes on without the native
+tier, is not copied. A non-zero return code of the native call, or text
+that is not UTF-8, falls through to tier 1, as in the JAX package.
+
 Pages are emitted in page-tree order separated by form feed (\\f), which
-the chunker uses for 1-based page numbers. The native C++ tier and the
-``pdftotext`` tier of the JAX package are not part of this port yet.
+the chunker uses for 1-based page numbers.
 """
 
 from __future__ import annotations
 
+import ctypes
+import logging
+import os
 import re
+import shutil
+import subprocess
+import tempfile
+import uuid
 import zlib
 from typing import Dict, List, Optional, Tuple
+
+logger = logging.getLogger(__name__)
 
 
 class PdfExtractionError(Exception):
@@ -19,10 +40,95 @@ class PdfExtractionError(Exception):
 
 
 def extract_pdf_text(data: bytes) -> str:
-    """Text of every page, pages separated by form feed; raises
-    PdfExtractionError when the document yields no text."""
-    return _builtin_extract(data)
+    """Tiered extraction; raises PdfExtractionError when every tier fails."""
+    native = _native_extract(data)
+    if native is not None and native.strip():
+        return native
+    try:
+        text = _builtin_extract(data)
+        if text.strip():
+            logger.info("PDF extracted using built-in backend: %d chars", len(text))
+            return text
+        builtin_err: Optional[Exception] = PdfExtractionError("built-in extractor produced no text")
+    except Exception as e:  # noqa: BLE001 — any parse failure falls through
+        builtin_err = e
+        logger.warning("Built-in PDF extraction failed: %s; trying pdftotext", e)
 
+    try:
+        text = _pdftotext_extract(data)
+        logger.info("PDF extracted using pdftotext fallback: %d chars", len(text))
+        return text
+    except Exception as pdftotext_err:
+        raise PdfExtractionError(
+            f"PDF extraction failed: built-in error: {builtin_err}, "
+            f"pdftotext error: {pdftotext_err}"
+        ) from pdftotext_err
+
+
+# ---- native tier ---------------------------------------------------------
+
+
+def native_enabled() -> bool:
+    return os.environ.get("RAG_TPU_NATIVE_PDF", "1") not in ("0", "false")
+
+
+def _native_extract(data: bytes) -> Optional[str]:
+    """Tier-0 native extraction; None when the tier is off, or when the
+    call returns non-zero or non-UTF-8 text (the caller falls back to the
+    pure-Python tier, which reports the real parse error). A library that
+    does not build or load raises."""
+    if not native_enabled():
+        return None
+    from rust_local_rag_tpu_torch.kernels import build
+
+    lib = build.load("pdftext")
+    out = ctypes.c_char_p()
+    out_len = ctypes.c_int64()
+    rc = lib.pdf_extract_text(data, len(data), ctypes.byref(out), ctypes.byref(out_len))
+    if rc != 0:
+        return None
+    try:
+        raw = ctypes.string_at(out, out_len.value)
+    finally:
+        lib.pdf_free_text(out)
+    try:
+        text = raw.decode("utf-8")
+    except UnicodeDecodeError:
+        return None
+    logger.info("PDF extracted using native backend: %d chars", len(text))
+    return text
+
+
+def _pdftotext_extract(data: bytes) -> str:
+    """pdftotext subprocess path (rag_engine.rs:1044-1090). UUID temp names
+    prevent collisions between concurrent extractions."""
+    if shutil.which("pdftotext") is None:
+        raise PdfExtractionError("pdftotext binary not found (is poppler installed?)")
+    tmp = os.path.join(tempfile.gettempdir(), f"temp_pdf_{uuid.uuid4()}.pdf")
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        proc = subprocess.run(
+            ["pdftotext", "-layout", "-enc", "UTF-8", tmp, "-"],
+            capture_output=True,
+            timeout=120,
+        )
+    finally:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+    if proc.returncode != 0:
+        raise PdfExtractionError(f"pdftotext failed: {proc.stderr.decode('utf-8', 'replace')}")
+    text = proc.stdout.decode("utf-8", "replace")
+    if not text.strip():
+        raise PdfExtractionError("pdftotext produced no text output")
+    return text
+
+
+# --------------------------------------------------------------------------
+# Built-in extractor
+# --------------------------------------------------------------------------
 
 _OBJ_RE = re.compile(rb"(\d+)\s+(\d+)\s+obj\b", re.S)
 _STREAM_RE = re.compile(rb"stream\r?\n")

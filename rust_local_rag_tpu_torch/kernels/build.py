@@ -9,10 +9,12 @@ Two toolchains, chosen by the library:
              -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
   * the host tier (csrc/<name>.cpp: the BM25 index, the WordPiece
-    tokenizer and the JSON response serializer), wherever the port runs,
-    the CPU tests included:
+    tokenizer, the JSON response serializer and the PDF text extractor),
+    wherever the port runs, the CPU tests included:
 
-        g++ -O3 -fPIC -std=c++17 -shared -o build/lib<name>-<hash>.so csrc/<name>.cpp
+        g++ -O3 -fPIC -std=c++17 -shared -o build/lib<name>-<hash>.so csrc/<name>.cpp [-lz]
+
+    (-lz for the PDF extractor only, as native/Makefile links it).
 
 Each library is built at first use into rust_local_rag_tpu_torch/build/
 (listed in .gitignore). The file name carries a hash of the sources and
@@ -44,13 +46,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the flags of the JAX package's native/Makefile, without -lz (no host
-# source of the port needs zlib)
+# the flags of the JAX package's native/Makefile; -lz goes to the one
+# library that inflates streams (GXX_LIBS)
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+GXX_LIBS = {"pdftext": ("-lz",)}
 
 # libraries built from csrc/<name>.cpp with g++; every other one is
 # csrc/<name>.cu built with nvcc
-HOST_LIBRARIES = ("lexical", "wordpiece", "serializer")
+HOST_LIBRARIES = ("lexical", "wordpiece", "serializer", "pdftext")
 
 # library name -> its ctypes signatures {function: (restype, argtypes)};
 # pointers are passed as Python ints (c_void_p), byte strings as c_char_p
@@ -110,6 +113,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _I64, [_P, *[_P] * 8, _I64, _I64, ctypes.c_float, ctypes.c_float, _P, _I64, _P],
         ),
     },
+    "pdftext": {  # as the JAX package's ingest/pdf.py binds them
+        "pdf_extract_text": (_I, [_S, _I64, ctypes.POINTER(_S), ctypes.POINTER(_I64)]),
+        "pdf_free_text": (None, [_S]),
+    },
 }
 
 
@@ -155,7 +162,8 @@ def library_path(name: str) -> str:
         if fname.endswith((".cu", ".cuh", ".h", ".cpp")):
             with open(os.path.join(CSRC_DIR, fname), "rb") as f:
                 h.update(fname.encode() + b"\0" + f.read())
-    h.update(" ".join(NVCC_FLAGS).encode() + b"\0" + " ".join(GXX_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS).encode() + b"\0" + " ".join(GXX_FLAGS).encode()
+             + b"\0" + " ".join(GXX_LIBS.get(name, ())).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -163,7 +171,7 @@ def _start(name: str, out: str) -> subprocess.Popen:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     if name in HOST_LIBRARIES:
-        cmd = [gxx_path(), *GXX_FLAGS, "-o", tmp, _source(name)]
+        cmd = [gxx_path(), *GXX_FLAGS, "-o", tmp, _source(name), *GXX_LIBS.get(name, ())]
     else:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _source(name)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

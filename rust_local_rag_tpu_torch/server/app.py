@@ -148,10 +148,23 @@ def graceful_flush(ctx) -> None:
 
 def prepare(ctx) -> None:
     """What main does between build_runtime and bind: start the worker
-    supervisor (resuming unfinished jobs), warm every search lane, and
+    supervisor (resuming unfinished jobs), the profiler's capture listener
+    when RAG_TPU_PROFILE_PORT names a port, warm every search lane, and
     register every chunk's response fragment."""
     ctx.supervisor.start()
     logger.info("Worker supervisor started")
+    # Profiling hook (the JAX server starts jax.profiler's server here):
+    # a loopback listener whose POST /capture takes a device trace of this
+    # live server for the asked duration (utils/profiling.CaptureServer)
+    profile_port = os.environ.get("RAG_TPU_PROFILE_PORT")
+    if profile_port:
+        try:
+            from rust_local_rag_tpu_torch.utils.profiling import CaptureServer
+
+            ctx.profiler = CaptureServer(int(profile_port), os.path.join(config.get_log_dir(), "traces"))
+            logger.info("Profiler capture listener on port %s (POST /capture)", profile_port)
+        except Exception as e:  # noqa: BLE001
+            logger.warning("Profiler server failed to start: %s", e)
     ctx.engine.warmup()
     n = ctx.batcher.preregister_fragments()
     if n:
@@ -200,6 +213,8 @@ def main(argv: Optional[list] = None) -> int:
         pass
     finally:
         stop_event.set()
+        if ctx.profiler is not None:
+            ctx.profiler.close()
         ctx.supervisor.stop()
         ctx.batcher.stop()
         graceful_flush(ctx)

@@ -73,6 +73,8 @@ class AppContext:
         # set by App.start: thread-safe callback fired when a job starts,
         # drives the SSE job progress push
         self.on_job_started = None
+        # server/app.prepare's profiler capture listener (RAG_TPU_PROFILE_PORT)
+        self.profiler = None
 
     # --- blocking operations (run on the App's thread pool) ---
 

@@ -54,6 +54,39 @@ def test_port_imports_nothing_forbidden(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+# eval_harness's stdlib modules (corpus, its data, metrics) are the port's to
+# use; these three import requests and yaml
+FORBIDDEN_MODULES = ("eval_harness.client", "eval_harness.runner", "eval_harness.run")
+
+
+def _forbidden_modules(path):
+    """Imports of FORBIDDEN_MODULES in path, `from eval_harness import
+    client` included."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            names = [a.value for a in node.args[:1] if isinstance(a, ast.Constant)]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            names = [a.value for a in node.args[:1] if isinstance(a, ast.Constant)]
+        hits = [m for m in FORBIDDEN_MODULES for n in names if isinstance(n, str) and (n == m or n.startswith(m + "."))]
+        yield from dict.fromkeys(hits)
+
+
+def test_port_imports_no_eval_harness_client_or_runner(tmp_path):
+    bad = {os.path.relpath(p, ROOT): list(_forbidden_modules(p)) for p in _port_files()}
+    assert not {k: v for k, v in bad.items() if v}
+    p = tmp_path / "m.py"
+    p.write_text("from eval_harness import metrics, client\nimport eval_harness.runner\n"
+                 "from eval_harness.run import main\nfrom eval_harness.corpus import generate_corpus\n")
+    assert list(_forbidden_modules(str(p))) == ["eval_harness.client", "eval_harness.runner", "eval_harness.run"]
+
+
 def test_ast_check_sees_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\nfrom rust_local_rag_tpu.ops import hybrid\n")
@@ -129,7 +162,7 @@ def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
     assert a == build.library_path("score_segmax")
     assert os.path.dirname(a) == build.BUILD_DIR and "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert set(build.SIGNATURES) == {"score_segmax", "attention", "segmax", "stream_probe", "resident_dot",
-                                     "lexical", "wordpiece", "serializer"}
+                                     "lexical", "wordpiece", "serializer", "pdftext"}
     assert build.library_path("attention") != a
     # the host sources and the g++ flags are part of every library's hash
     csrc = tmp_path / "csrc"
