@@ -199,7 +199,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    that differ from the JAX package's round-5 reports); bench (at
    bench.py's N 1,245,184 with 4 chained steps; every line's last step
    against torch.topk of the plain plane) and bench_server (131,072
-   chunks, 4 s a point), each printed as its program's JSON line.
+   chunks, 4 s a point), each printed as its program's JSON line;
+11. sharded (right after trace, on the slice's engine): corpus sharding
+   with its shards standing on the one card (the lines say "stand_in").
+   sharded_functions: 1,310,720 x 768 seeded unit rows (4.03 GB f32, a
+   bf16 and an int8 copy; 1% freed, slots next to the top hits freed),
+   512 lexical hits a query (one on its own row); meshes of 4 shards
+   ("corpus"), 2 x 4 ("slice", "corpus") and 2 x 4 ("data", "corpus")
+   over the card; at Q 1, 16 and 64 (padded to the data blocks as the
+   engine pads) and top_k 10 and 30, sharded_hybrid_topk on the f32 and
+   bf16 slabs with and without the candidates' similarities,
+   sharded_hybrid_topk_quantized (certified rows) and
+   sharded_hybrid_topk_dequant_full on the int8 slab, sharded_topk and
+   multislice_topk (the padded tail masked), each against the unsharded
+   function on the card (same_topk at 1e-4; similarities where the
+   candidates agree), the masked kernel's launches zeroed just before
+   each sharded call and read just after (one a shard a data block, none
+   on int8); sharded_times: the 4-shard f32 first stage against the
+   unsharded one at Q 16 and 64 (CUDA events), the merge alone on
+   candidate planes of the same shapes, and the peak memory each call
+   adds above the slab. sharded_engines: the warn path
+   (RAG_TPU_SHARD_CORPUS=4 on the one card must log the JAX warning and
+   answer as the unsharded engine), then four engines over the main
+   engine's chunks (slab capacity 262,144; its lexical index shared):
+   4 shards, 2 query replicas x 4 shards, 2 slices x 4 shards, and
+   4 shards of int8, each through SearchBatcher in 16- and 64-bursts
+   (rerank off, rerank on with the judge, MMR at 0.3) with
+   the launches counted a burst, against the unsharded engine on the
+   card and a CPU copy of the same sharded engine (the CPU mesh; the
+   card's encoder and judge), every request on the object lane; the
+   4-shard engine saved and reloaded.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -212,6 +241,7 @@ import argparse
 import copy
 import http.client
 import json
+import logging
 import os
 import shutil
 import signal
@@ -224,7 +254,7 @@ import threading
 import time
 import uuid
 import zlib
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 import numpy as np
 import torch
@@ -241,7 +271,7 @@ from rust_local_rag_tpu_torch.experiments import (
 )
 from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights, get_embedding_model
 from rust_local_rag_tpu_torch.engine import persistence
-from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta
+from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta, ChunkStore
 from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine, _bucket_k
 from rust_local_rag_tpu_torch.kernels import build
 from rust_local_rag_tpu_torch.models.encoder import default_asset
@@ -289,6 +319,17 @@ from rust_local_rag_tpu_torch.ops.stream_probe import (
     resident_dot_segmax,
     stream_segmax,
     stream_segmax_plain,
+)
+from rust_local_rag_tpu_torch.parallel import mesh as mesh_module
+from rust_local_rag_tpu_torch.parallel import sharded_search
+from rust_local_rag_tpu_torch.parallel.mesh import build_mesh
+from rust_local_rag_tpu_torch.parallel.multislice import multislice_topk
+from rust_local_rag_tpu_torch.parallel.sharded_search import (
+    shard_corpus,
+    sharded_hybrid_topk,
+    sharded_hybrid_topk_dequant_full,
+    sharded_hybrid_topk_quantized,
+    sharded_topk,
 )
 from rust_local_rag_tpu_torch.server.app import build_runtime, prepare
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher
@@ -3501,6 +3542,376 @@ def experiments_times(seed: int, dev, card: str) -> dict:
     return rows
 
 
+# ------------------------------------------------------------- sharded ----
+
+SHARD_N = 80 * 16384  # 1,310,720 rows: 4 shards of 327,680 and 8 of 163,840 both take the kernel's branch
+SHARD_Q = (1, 16, 64)
+SHARD_TOP_K = (10, 30)
+SHARD_FREED = 0.01
+# name: (mesh sizes, axis names, corpus_axis, data_axis), every position the one card
+SHARD_MESHES = {
+    "corpus4": ((4,), ("corpus",), "corpus", None),
+    "slice2x4": ((2, 4), ("slice", "corpus"), ("slice", "corpus"), None),
+    "data2x4": ((2, 4), ("data", "corpus"), "corpus", "data"),
+}
+# the sharded engines' slab: 4 shards of 65,536 rows take the kernel's
+# branch, 8 shards of 32,768 (the sliced engine) the matmul's
+SHARD_CAPACITY = 4 * 65536
+SHARD_BURSTS = (16, 64)
+# engine: (environment, stand-in devices, kernel launches a first-stage call)
+SHARD_ENGINES = {
+    "corpus4": ({"RAG_TPU_SHARD_CORPUS": "4"}, 4, 4),
+    "data2x4": ({"RAG_TPU_SHARD_CORPUS": "4", "RAG_TPU_DATA_PARALLEL": "2"}, 8, 8),
+    "slice2x4": ({"RAG_TPU_SHARD_CORPUS": "8", "RAG_TPU_SLICES": "2"}, 8, 0),
+    "int8_corpus4": ({"RAG_TPU_SHARD_CORPUS": "4", "RAG_TPU_INT8_CORPUS": "1"}, 4, 0),
+}
+SHARD_LANES = {"off": (0.0, False), "on": (0.0, True), "mmr": (DIVERSITY, False)}
+
+
+def topk_rows(vals, idx, emb=None, lex=None, nq=None) -> list:
+    """[Q, k] planes -> per query [(slot, value, emb, lex)] of the valid rows."""
+    planes = [x.cpu().numpy() for x in (vals, idx)]
+    extra = [x.cpu().numpy() for x in (emb, lex) if x is not None]
+    out = []
+    for qi in range(nq if nq is not None else planes[0].shape[0]):
+        out.append([(int(planes[1][qi, j]), float(planes[0][qi, j]), *(float(e[qi, j]) for e in extra))
+                    for j in range(planes[0].shape[1])
+                    if planes[1][qi, j] >= 0 and np.isfinite(planes[0][qi, j])])
+    return out
+
+
+def same_rows(got: list, want: list, what: str) -> int:
+    for qi, (a, b) in enumerate(zip(got, want)):
+        same_topk(a, b, SCORE_TOL, f"{what} query {qi}")
+    return len(got)
+
+
+def sharded_functions(seed: int, dev, card: str) -> dict:
+    """The sharded functions on meshes that stand 4 or 8 shards on the
+    card, each call held against the unsharded function on the same card
+    and inputs; the masked kernel's launches counted around each sharded
+    call (one a shard a data block on f32 and bf16 slabs, none on int8)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    corpus = torch.empty((SHARD_N, DIM), device=dev)
+    for r0 in range(0, SHARD_N, INT8_BLOCK):
+        corpus[r0:r0 + INT8_BLOCK] = unit_rows(gen, min(INT8_BLOCK, SHARD_N - r0), DIM, dev)
+    src = torch.randint(0, SHARD_N, (max(SHARD_Q),), generator=gen, device=dev)
+    mask = torch.rand(SHARD_N, generator=gen, device=dev) >= SHARD_FREED
+    mask[(src + 1) % SHARD_N] = False  # freed slots next to the top hits
+    mask[src] = True
+    live = torch.nonzero(mask)[:, 0]
+    qs_all = corpus[src] + 0.05 * unit_rows(gen, len(src), DIM, dev)
+    qs_all = (qs_all / torch.linalg.vector_norm(qs_all, dim=1, keepdim=True)).contiguous()
+    ls_all, lv_all = lexical_hits(live, len(src), gen)
+    ls_all[:, 0] = src.to(torch.int32)  # a hit on each query's own row: the dense side's duplicate
+    slabs = {"f32": corpus, "bf16": corpus.to(torch.bfloat16)}
+    int8 = quantize_corpus(corpus)
+    l1 = int8.scales[:, 0] * int8.values.abs().sum(dim=1, dtype=torch.int32).float()
+    w_e, w_l = (torch.tensor(w, device=dev) for w in (0.7, 0.3))
+    meshes = {name: (build_mesh(sizes, names, devices=[dev] * int(np.prod(sizes))), caxis, daxis)
+              for name, (sizes, names, caxis, daxis) in SHARD_MESHES.items()}
+    out = {"launches": 0, "calls": 0, "checked_queries": 0, "max_sims_diff": 0.0, "int8_certified": [0, 0]}
+
+    def inputs(q: int, dp: int):
+        """Q queries padded to a multiple of the data blocks with zero
+        rows and no hits, as the engine pads them."""
+        qp = -(-q // dp) * dp
+        qs = torch.zeros((qp, DIM), device=dev)
+        qs[:q] = qs_all[:q]
+        ls = torch.full((qp, ls_all.shape[1]), -1, dtype=torch.int32, device=dev)
+        lv = torch.zeros((qp, ls_all.shape[1]), device=dev)
+        ls[:q], lv[:q] = ls_all[:q], lv_all[:q]
+        return qs, ls, lv
+
+    def counted(fn, want: int, what: str):
+        score_segmax.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        n = score_segmax.launches
+        if n != want:
+            raise AssertionError(f"{what}: {n} masked-kernel launches, want {want}")
+        out["launches"] += n
+        out["calls"] += 1
+        return res
+
+    for dtype, slab in slabs.items():
+        for q in SHARD_Q:
+            for k in SHARD_TOP_K:
+                qs, ls, lv = inputs(q, 2)
+                ref = hybrid_topk(qs, slab, mask, ls, lv, w_e, w_l, k, with_sims=True)
+                want = topk_rows(ref[0], ref[3], ref[1], ref[2], nq=q)
+                for name, (mesh, caxis, daxis) in meshes.items():
+                    dp = mesh.shape[daxis] if daxis else 1
+                    placed = shard_corpus(slab, mesh, caxis), shard_corpus(mask, mesh, caxis)
+                    qd, lsd, lvd = inputs(q, dp)
+                    for sims in (False, True):
+                        what = f"sharded_hybrid_topk {name} {dtype} Q{q} k{k}{' sims' if sims else ''}"
+                        # every position runs its shard of its data block
+                        res = counted(lambda: sharded_hybrid_topk(qd, *placed, lsd, lvd, w_e, w_l, k, mesh,
+                                                                  corpus_axis=caxis, with_sims=sims,
+                                                                  data_axis=daxis), mesh.size, what)
+                        out["checked_queries"] += same_rows(topk_rows(res[0], res[3], res[1], res[2], nq=q), want,
+                                                            what)
+                        if sims:
+                            rows = (res[3][:q] == ref[3][:q]).all(dim=1)
+                            if rows.any():
+                                d = float((res[4][:q][rows] - ref[4][:q][rows]).abs().max())
+                                out["max_sims_diff"] = max(out["max_sims_diff"], d)
+                                if d > SCORE_TOL:
+                                    raise AssertionError(f"{what}: similarities differ by {d}")
+    del slabs["bf16"]
+    # the exact top-k (sharded_topk, multislice_topk): the padded tail masked
+    n_valid = SHARD_N - 1000
+    ms_mesh = build_mesh((2, 4), ("slice", "ici"), devices=[dev] * 8)
+    mesh4 = meshes["corpus4"][0]
+    for q in SHARD_Q:
+        scores = torch.matmul(qs_all[:q], corpus.T)
+        scores[:, n_valid:] = float("-inf")
+        for k in SHARD_TOP_K:
+            rv, ri = torch.topk(scores, k, dim=1)
+            want = topk_rows(rv, ri)
+            for what, fn, shards in (
+                    ("sharded_topk", lambda: sharded_topk(qs_all[:q], shard_corpus(corpus, mesh4), k, mesh4,
+                                                          valid_count=n_valid), 4),
+                    ("multislice_topk", lambda: multislice_topk(qs_all[:q], corpus, k, ms_mesh,
+                                                                valid_count=n_valid), 8)):
+                v, i = counted(fn, shards, f"{what} Q{q} k{k}")
+                out["checked_queries"] += same_rows(topk_rows(v, i), want, f"{what} Q{q} k{k}")
+        del scores
+    # int8: certified rows and the escalation lane against the unsharded
+    # escalation lane (exact over the dequantised rows)
+    for q in SHARD_Q:
+        for k in SHARD_TOP_K:
+            qs, ls, lv = inputs(q, 2)
+            ref = hybrid_topk_dequant_full(qs, int8.values, int8.scales, mask, ls, lv, w_e, w_l, k)
+            want = topk_rows(ref[0], ref[3], ref[1], ref[2], nq=q)
+            for name, (mesh, caxis, daxis) in meshes.items():
+                dp = mesh.shape[daxis] if daxis else 1
+                qd, lsd, lvd = inputs(q, dp)
+                args = (shard_corpus(int8.values, mesh, caxis), shard_corpus(int8.scales, mesh, caxis))
+                placed_mask = shard_corpus(mask, mesh, caxis)
+                what = f"sharded int8 {name} Q{q} k{k}"
+                res = counted(lambda: sharded_hybrid_topk_quantized(
+                    qd, *args, shard_corpus(l1, mesh, caxis), placed_mask, lsd, lvd, w_e, w_l, k, mesh,
+                    corpus_axis=caxis, data_axis=daxis), 0, what)
+                full = counted(lambda: sharded_hybrid_topk_dequant_full(
+                    qd, *args, placed_mask, lsd, lvd, w_e, w_l, k, mesh, corpus_axis=caxis, data_axis=daxis),
+                    0, what + " dequant_full")
+                out["checked_queries"] += same_rows(topk_rows(full[0], full[3], full[1], full[2], nq=q), want,
+                                                    what + " dequant_full")
+                cert = res[4][:q].cpu().numpy()
+                got = topk_rows(res[0], res[3], res[1], res[2], nq=q)
+                same_rows([g for g, c in zip(got, cert) if c], [w for w, c in zip(want, cert) if c], what)
+                out["int8_certified"][0] += int(cert.sum())
+                out["int8_certified"][1] += q
+    # times: the sharded first stage (4 shards on the card) against the
+    # unsharded one, f32, and the merge alone on candidate planes of the
+    # call's shapes
+    times = []
+    mesh, caxis, _ = meshes["corpus4"]
+    placed = shard_corpus(corpus, mesh, caxis), shard_corpus(mask, mesh, caxis)
+    lay = sharded_search._Layout(mesh, caxis, None, SHARD_N, "{n} {s}")
+    kb = _bucket_k(TOP_K)  # the engine's k for top_k 10
+    for q in (16, 64):
+        qs, ls, lv = inputs(q, 1)
+        sharded_call = lambda: sharded_hybrid_topk(qs, *placed, ls, lv, w_e, w_l, kb, mesh)  # noqa: E731
+        plain_call = lambda: hybrid_topk(qs, corpus, mask, ls, lv, w_e, w_l, kb)  # noqa: E731
+        planes = [(torch.rand((q, kb), device=dev), torch.rand((q, kb), device=dev), torch.rand((q, kb), device=dev),
+                   torch.randint(0, SHARD_N, (q, kb), device=dev, dtype=torch.int32)) for _ in range(4)]
+        merge_call = lambda: sharded_search._pad_k(*lay.merge(planes, kb), kb)  # noqa: E731
+        _, peak_sharded = peak_above(sharded_call)
+        _, peak_plain = peak_above(plain_call)
+        row = {"Q": q, "k": kb, "N": SHARD_N, "shards": 4, "sharded_ms": cuda_ms(sharded_call),
+               "unsharded_ms": cuda_ms(plain_call), "merge_ms": cuda_ms(merge_call),
+               "peak_above_slab_bytes": peak_sharded, "unsharded_peak_above_slab_bytes": peak_plain}
+        row["merge_share"] = row["merge_ms"] / row["sharded_ms"]
+        times.append(row)
+    log({"sharded_times": times, "stand_in": "4 shards on 1 card", "card": card})
+    out["times"] = times
+    return out
+
+
+@contextmanager
+def stand_in(dev, shards: int):
+    """parallel/mesh.available_devices answers `shards` times the one card:
+    the engine's one seam for standing several shards on it."""
+    real = mesh_module.available_devices
+    mesh_module.available_devices = lambda device: [torch.device(dev)] * shards
+    try:
+        yield
+    finally:
+        mesh_module.available_devices = real
+
+
+def compare_rerank_pools(eng, other_eng, got, other, queries, near: list, worst: dict, what: str) -> None:
+    """The object lane with the judge: each query's judged pool (the first
+    stage's 3 x top_k rows) of both engines must agree as same_topk says;
+    where the two pools hold the same rows, the answers must agree as
+    compare_object says; where a first-stage tie at the pool's edge put
+    another row in one pool, the rows both judged must get the same
+    judge outputs (recorded in `near`)."""
+    pools = [e.search_batch(queries, 3 * TOP_K, use_reranker=False) for e in (eng, other_eng)]
+    for q, a, b, pa, pb in zip(queries, got, other, *pools):
+        same_topk(rows_of(pa, eng.store), rows_of(pb, eng.store), SCORE_TOL, f"{what} {q!r} pool")
+        if {r.chunk_id for r in pa} == {r.chunk_id for r in pb}:
+            compare_object([a], [b], [q], False, near, worst, what)
+            continue
+        gb = {r.chunk_id: r for r in b}
+        for r in a:
+            if r.chunk_id in gb:
+                x = gb[r.chunk_id]
+                compare_judge((r.reranker_score, r.yes_logprob, r.no_logprob),
+                              (x.reranker_score, x.yes_logprob, x.no_logprob), f"{what} {q!r} {r.chunk_id}", worst)
+        near.append({"lane": "sharded_object", "check": what, "query": q, "kind": "pool_edge_tie",
+                     "only_here": sorted({r.chunk_id for r in pa} - {r.chunk_id for r in pb}),
+                     "only_there": sorted({r.chunk_id for r in pb} - {r.chunk_id for r in pa})})
+
+
+def sharded_engines(engine, dev, card: str, tmp: str, rng, probs) -> dict:
+    """Engines over the main engine's chunks (its lexical index shared,
+    the slots being the same) with RAG_TPU_SHARD_CORPUS and friends: the
+    warn path on the one card, then each configuration of SHARD_ENGINES
+    with its shards standing on the card, driven through SearchBatcher in
+    each lane and held against the unsharded engine on the card and a CPU
+    copy of the same sharded engine (the CPU mesh; the card's encoder and
+    judge). Every request must take the object lane."""
+    emb, metas = engine.store.snapshot_host()
+    if engine.store.high_water != len(engine.store):
+        raise AssertionError("sharded: the main engine's slots have holes; its lexical index cannot be shared")
+
+    def sub(name: str, env: dict, device, shards: int = 0, reranker=None):
+        with ExitStack() as stack:
+            for k, v in env.items():
+                stack.enter_context(env_set(k, v))
+            if shards:
+                stack.enter_context(stand_in(dev, shards))
+            eng = RagEngine(os.path.join(tmp, "sharded", name), engine.embedding_service, reranker, device=device)
+        eng.store = ChunkStore(DIM, torch.float32, SHARD_CAPACITY, device=device, quantized=eng.store.quantized,
+                               mesh=eng._mesh, corpus_axis=eng._corpus_axes)
+        if eng.store.add_chunks(metas, emb) != list(range(len(metas))):
+            raise AssertionError(f"sharded {name}: slots differ from the main engine's")
+        eng.lexical_index = engine.lexical_index
+        return eng
+
+    def answer(eng, queries, lane: str):
+        div, rr = SHARD_LANES[lane]
+        return eng.search_with_diversity_batch(queries, TOP_K, div, use_reranker=rr)
+
+    out = {"launches": 0}
+    # warn path: no stand-in, so the one card cannot hold 4 shards
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    eng_log = logging.getLogger(RagEngine.__module__)
+    eng_log.addHandler(handler)
+    try:
+        warned = sub("warn", {"RAG_TPU_SHARD_CORPUS": "4"}, dev)
+    finally:
+        eng_log.removeHandler(handler)
+    msgs = [r.getMessage() for r in records]
+    want_msg = f"RAG_TPU_SHARD_CORPUS=4 but only {torch.cuda.device_count()} devices; running unsharded"
+    if torch.cuda.device_count() < 4 and (warned._mesh is not None or want_msg not in msgs):
+        raise AssertionError(f"sharded warn path: mesh {warned._mesh}, log {msgs}")
+    plain = sub("plain", {}, dev, reranker=engine.reranker)
+    qs = queries_for(rng, 16, probs)
+    same_rows([rows_of(r, plain.store) for r in answer(warned, qs, "off")],
+              [rows_of(r, plain.store) for r in answer(plain, qs, "off")], "warn path vs unsharded")
+    log({"sharded_warn_path": want_msg, "logged": want_msg in msgs, "mesh": None, "checked": len(qs), "card": card})
+    del warned
+    plain8 = sub("plain_int8", {"RAG_TPU_INT8_CORPUS": "1"}, dev, reranker=engine.reranker)
+    rows_cpu = {False: plain.store.corpus().cpu(),
+                True: plain8.store.corpus().cpu().float() * plain8.store.scales().cpu()}
+    near, worst = [], {"rr": 0.0, "logprob": 0.0}
+    for name, (env, shards, per_call) in SHARD_ENGINES.items():
+        t0 = time.perf_counter()
+        eng = sub(name, env, dev, shards, engine.reranker)
+        cpu = sub(name + "_cpu", env, "cpu", reranker=engine.reranker)
+        ref = plain8 if eng.store.quantized else plain
+        calls = {"object": 0, "columnar": 0, "first_stage": 0}
+        burst_first_stages = 0
+        real_object, real_dispatch = eng.search_with_diversity_batch, eng._dispatch
+
+        def object_lane(*a, **kw):
+            calls["object"] += 1
+            return real_object(*a, **kw)
+
+        def first_stage(*a, **kw):
+            calls["first_stage"] += 1
+            return real_dispatch(*a, **kw)
+
+        def columnar(*a, **kw):
+            calls["columnar"] += 1
+            raise AssertionError("a sharded engine took a columnar lane")
+
+        eng.search_with_diversity_batch, eng._dispatch = object_lane, first_stage
+        eng.dispatch_search = eng.dispatch_search_mmr = eng.judge_columnar = columnar
+        batcher = SearchBatcher(eng, RwLock())
+        checked = {"unsharded": 0, "cpu_copy": 0}
+        launches = 0
+        try:
+            for lane, (div, use_rr) in SHARD_LANES.items():
+                for b in SHARD_BURSTS:
+                    qs = queries_for(rng, b, probs)
+                    before = calls["first_stage"]
+                    score_segmax.launches = 0
+                    futs = [batcher.submit(q, TOP_K, div, None, use_reranker=use_rr) for q in qs]
+                    got = [f.result(timeout=300) for f in futs]
+                    n, stages = score_segmax.launches, calls["first_stage"] - before
+                    if n != per_call * stages:
+                        raise AssertionError(f"sharded {name} {lane} {b}: {n} launches for {stages} first stages")
+                    launches += n
+                    burst_first_stages += stages
+                    for side, other_eng in (("unsharded", ref), ("cpu_copy", cpu)):
+                        other = answer(other_eng, qs, lane)
+                        what = f"sharded {name} {lane} {b} vs {side}"
+                        if lane == "on":
+                            compare_rerank_pools(eng, other_eng, got, other, qs, near, worst, what)
+                        elif lane == "mmr":
+                            for i, (a, w) in enumerate(zip(got, other)):
+                                compare_mmr(rows_of(a, eng.store), rows_of(w, eng.store),
+                                            rows_cpu[eng.store.quantized], DIVERSITY, near, f"{what} {i}")
+                        else:
+                            same_rows([rows_of(r, eng.store) for r in got], [rows_of(r, eng.store) for r in other],
+                                      what)
+                        checked[side] += len(qs)
+        finally:
+            batcher.stop()
+        if calls["columnar"] or calls["object"] == 0:
+            raise AssertionError(f"sharded {name}: lanes {calls}")
+        out["launches"] += launches
+        line = {"sharded_lanes": name, "stand_in": f"{shards} shards on 1 card", "env": env,
+                "mesh": eng._mesh.shape, "rows_a_shard": eng.store.corpus().rows, "lanes": list(SHARD_LANES),
+                "bursts": list(SHARD_BURSTS), "object_lane_batches": calls["object"],
+                "first_stage_calls": burst_first_stages, "columnar_calls": calls["columnar"],
+                "score_segmax_masked_launches": launches, "checked": checked,
+                "int8_escalations": eng.int8_escalations}
+        if name == "corpus4":
+            # a save and reload: the saved file is the unsharded format
+            eng.save_to_disk()
+            with env_set("RAG_TPU_SHARD_CORPUS", "4"), stand_in(dev, 4):
+                again = RagEngine(eng.data_dir, engine.embedding_service, device=dev)
+            qs = queries_for(rng, 16, probs)
+            if len(again.store) != len(eng.store) or again._mesh is None:
+                raise AssertionError(f"sharded reload: {len(again.store)} chunks, mesh {again._mesh}")
+            same_rows([rows_of(r, again.store) for r in answer(again, qs, "off")],
+                      [rows_of(r, plain.store) for r in answer(plain, qs, "off")], "sharded reload vs unsharded")
+            line["reload_checked"] = len(qs)
+            del again
+        log({**line, "seconds": time.perf_counter() - t0, "card": card})
+        del eng, cpu
+    log({"sharded_near_ties": near[:10], "count": len(near), "judge_max_diff_vs_unsharded": worst, "card": card})
+    return out
+
+
+def run_sharded(engine, dev, card: str, tmp: str, seed: int, rng, probs) -> dict:
+    fn = sharded_functions(seed, dev, card)
+    log({"sharded_functions": {k: v for k, v in fn.items() if k != "times"}, "card": card})
+    torch.cuda.empty_cache()
+    eng = sharded_engines(engine, dev, card, tmp, rng, probs)
+    torch.cuda.empty_cache()
+    return {"launches": fn["launches"] + eng["launches"], "functions": fn, "engines": eng}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3722,7 +4133,8 @@ def main(argv=None) -> int:
                       "http": srv["launches"]["score_segmax_masked"],
                       "trace": result["trace"]["launches"]["score_segmax_masked"],
                       "bench": bench_launches["score_segmax_masked"],
-                      "bench_server": server_launches["score_segmax_masked"]}
+                      "bench_server": server_launches["score_segmax_masked"],
+                      "sharded": result["sharded"]["launches"]}
     log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
     log({"new_path_launches": {"trace": result["trace"]["launches"], "bench": bench_launches,
                                "bench_server": server_launches}, "card": card})
@@ -3976,6 +4388,8 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
         with phase("trace", card, seconds):
             trace = run_trace(engine, batcher, card, tmp, np.random.default_rng([args.seed, 13]), probs,
                               server["entry_point"]["entry_capture"])
+        with phase("sharded", card, seconds):
+            sharded = run_sharded(engine, dev, card, tmp, args.seed, np.random.default_rng([args.seed, 14]), probs)
     finally:
         batcher.stop()
         engine.embedding_service.close()
@@ -3984,7 +4398,7 @@ def run_slice(args, dev, card: str, seconds: dict, tmp: str) -> dict:
     return {"launches": launches, "latency": latency, "ingest": ingest, "breakdown": breakdown,
             "main_q": max(set(padded), key=padded.count), "rerank": rerank, "mmr": mmr,
             "lexical": lex_stats, "tokenizer": tok_stats, "server": server, "bf16_wide": wide,
-            "f32_wide": f32_wide, "int8": int8, "pdfs": pdfs, "trace": trace}
+            "f32_wide": f32_wide, "int8": int8, "pdfs": pdfs, "trace": trace, "sharded": sharded}
 
 
 if __name__ == "__main__":

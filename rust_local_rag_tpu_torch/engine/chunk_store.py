@@ -1,6 +1,6 @@
 """Device-resident chunk store: an embedding slab plus host-side metadata
 (port of rust_local_rag_tpu/engine/chunk_store.py: f32, bf16 and int8
-slabs on one device, no mesh).
+slabs, on one device or row-sharded over a mesh).
 
   * device: a preallocated [capacity, D] embedding tensor and a [capacity]
     bool validity mask. New rows are written in place; a document
@@ -17,6 +17,15 @@ slabs on one device, no mesh).
     Rows are quantised on the host with the JAX store's numpy code, so
     values, scales and l1 are bit-identical with its; snapshots
     dequantise (f32), so the saved format is the same.
+  * mesh (parallel/mesh.Mesh): slab, mask, scales and l1 are
+    parallel/mesh.ShardedTensors row-sharded over `corpus_axis` (one
+    tensor a shard on that shard's device, replicated over the mesh's
+    other axes), searched by parallel/sharded_search. The capacity is a
+    multiple of the shard count; writes go to the owning shard's
+    replicas; growth rebuilds every shard, since a shard's rows are
+    capacity / shards and doubling the capacity moves slots between
+    shards. Snapshots are in slot order, so a sharded index saves the
+    same file as an unsharded one.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import numpy as np
 import torch
 
 from rust_local_rag_tpu_torch.device import resolve_device
-from rust_local_rag_tpu_torch.ops.quantized import QuantizedCorpus
+from rust_local_rag_tpu_torch.ops.quantized import QuantizedCorpus, gather_dequantized
+from rust_local_rag_tpu_torch.parallel.mesh import ShardedTensor, as_axes
 
 
 @dataclass
@@ -52,9 +62,13 @@ class ChunkStore:
         initial_capacity: int = 1024,
         device: str | torch.device = "cuda",
         quantized: bool = False,
+        mesh=None,
+        corpus_axis="corpus",
     ):
         """quantized=True stores int8 rows and their scales (dtype is then
-        ignored, as in the JAX store)."""
+        ignored, as in the JAX store). mesh row-shards the tensors over
+        corpus_axis (an axis name, or a tuple of them, outer first); the
+        store's device is then the mesh's lead device."""
         self.quantized = bool(quantized)
         if self.quantized:
             dtype = torch.int8
@@ -63,11 +77,17 @@ class ChunkStore:
         self.dim = int(dim)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._axes = as_axes(corpus_axis)
+        if mesh is not None:
+            self.device = mesh.lead
+            shards = ShardedTensor.shard_count(mesh, self._axes)
+            initial_capacity = -(-int(initial_capacity) // shards) * shards
         self._capacity = int(initial_capacity)
-        self._emb = torch.zeros((self._capacity, self.dim), dtype=dtype, device=self.device)
+        self._emb = self._zeros((self._capacity, self.dim), dtype)
         self._scales = self._zeros((self._capacity, 1)) if self.quantized else None
         self._l1 = self._zeros((self._capacity,)) if self.quantized else None
-        self._mask = torch.zeros((self._capacity,), dtype=torch.bool, device=self.device)
+        self._mask = self._zeros((self._capacity,), torch.bool)
         self._meta: List[Optional[ChunkMeta]] = [None] * self._capacity
         self._id_to_slot: Dict[str, int] = {}
         self._free: List[int] = []
@@ -87,11 +107,23 @@ class ChunkStore:
     def high_water(self) -> int:
         return self._high_water
 
-    def _zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+    def _zeros(self, shape, dtype: torch.dtype = torch.float32):
+        if self.mesh is not None:
+            return ShardedTensor.zeros(self.mesh, self._axes, shape, dtype)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
-    def corpus(self) -> torch.Tensor:
-        """[capacity, D] device slab (rows outside the mask are garbage)."""
+    def _write(self, t, slots, values) -> None:
+        """Rows `slots` of t := values (a host tensor, cast to t's dtype on
+        the device, or a scalar)."""
+        if isinstance(t, ShardedTensor):
+            t.set_rows(np.asarray(slots, dtype=np.int64), values)
+            return
+        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        t[idx] = values.to(self.device, t.dtype) if torch.is_tensor(values) else values
+
+    def corpus(self):
+        """[capacity, D] device slab (rows outside the mask are garbage); a
+        ShardedTensor on a mesh."""
         return self._emb
 
     def scales(self) -> torch.Tensor:
@@ -111,9 +143,20 @@ class ChunkStore:
         """The int8 slab and its scales as ops/quantized's QuantizedCorpus."""
         return QuantizedCorpus(values=self._emb, scales=self.scales())
 
-    def valid_mask(self) -> torch.Tensor:
+    def valid_mask(self):
         """[capacity] device bool mask of live slots."""
         return self._mask
+
+    def gather_rows(self, slots: torch.Tensor) -> torch.Tensor:
+        """Rows `slots` ([...] int) on the store's device: the slab's dtype
+        (f32 or bf16), an int8 store's rows dequantised to f32."""
+        idx = torch.as_tensor(slots, device=self.device).long()
+        if self.mesh is None:
+            if self.quantized:
+                return gather_dequantized(self._emb, self._scales, idx)
+            return self._emb[idx]
+        rows = self._emb.take(idx)
+        return rows.float() * self._scales.take(idx) if self.quantized else rows
 
     def meta_for_slot(self, slot: int) -> ChunkMeta:
         m = self._meta[slot]
@@ -147,15 +190,15 @@ class ChunkStore:
         if new_cap == self._capacity:
             return
         pad = new_cap - self._capacity
-        self._emb = torch.cat(
-            [self._emb, torch.zeros((pad, self.dim), dtype=self.dtype, device=self.device)]
-        )
+
+        def grown(t):
+            if isinstance(t, ShardedTensor):
+                return t.resized(new_cap)
+            return torch.cat([t, torch.zeros((pad, *t.shape[1:]), dtype=t.dtype, device=self.device)])
+
+        self._emb, self._mask = grown(self._emb), grown(self._mask)
         if self.quantized:
-            self._scales = torch.cat([self._scales, self._zeros((pad, 1))])
-            self._l1 = torch.cat([self._l1, self._zeros((pad,))])
-        self._mask = torch.cat(
-            [self._mask, torch.zeros((pad,), dtype=torch.bool, device=self.device)]
-        )
+            self._scales, self._l1 = grown(self._scales), grown(self._l1)
         self._meta.extend([None] * pad)
         self._capacity = new_cap
 
@@ -186,7 +229,6 @@ class ChunkStore:
         for slot, meta in zip(slots, metas):
             self._meta[slot] = meta
             self._id_to_slot[meta.id] = slot
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         emb32 = np.asarray(embeddings, dtype=np.float32)
         if self.quantized:
             # the JAX store's host quantisation, line for line
@@ -194,12 +236,12 @@ class ChunkStore:
             scale = (absmax / 127.0).astype(np.float32)
             q = np.clip(np.round(emb32 / scale), -127, 127).astype(np.int8)
             l1 = (scale[:, 0] * np.abs(q).astype(np.float32).sum(axis=1)).astype(np.float32)
-            self._emb[idx] = torch.from_numpy(q).to(self.device)
-            self._scales[idx] = torch.from_numpy(scale).to(self.device)
-            self._l1[idx] = torch.from_numpy(l1).to(self.device)
+            self._write(self._emb, slots, torch.from_numpy(q))
+            self._write(self._scales, slots, torch.from_numpy(scale))
+            self._write(self._l1, slots, torch.from_numpy(l1))
         else:
-            self._emb[idx] = torch.from_numpy(emb32).to(self.device, self.dtype)
-        self._mask[idx] = True
+            self._write(self._emb, slots, torch.from_numpy(emb32))
+        self._write(self._mask, slots, True)
         self.mutations += 1
         return slots
 
@@ -213,7 +255,7 @@ class ChunkStore:
                 del self._id_to_slot[meta.id]
             self._meta[slot] = None
             self._free.append(slot)
-        self._mask[torch.as_tensor(doomed, dtype=torch.long, device=self.device)] = False
+        self._write(self._mask, doomed, False)
         self.mutations += 1
         return len(doomed)
 
@@ -233,7 +275,9 @@ class ChunkStore:
         self._high_water = n
         idx = torch.as_tensor(live, dtype=torch.long, device=self.device)
 
-        def repack(t: torch.Tensor) -> torch.Tensor:
+        def repack(t):
+            if isinstance(t, ShardedTensor):
+                return t.repacked(np.asarray(live, dtype=np.int64))
             out = torch.zeros_like(t)
             out[:n] = t[idx]
             return out
@@ -242,8 +286,8 @@ class ChunkStore:
         if self.quantized:
             self._scales = repack(self._scales)
             self._l1 = repack(self._l1)
-        self._mask = torch.zeros_like(self._mask)
-        self._mask[:n] = True
+        self._mask = self._zeros((self._capacity,), torch.bool)
+        self._write(self._mask, np.arange(n), True)
         self.mutations += 1
 
     # ----- persistence helpers -------------------------------------------
@@ -255,8 +299,14 @@ class ChunkStore:
         live = sorted(self._id_to_slot.values())
         if not live:
             return np.zeros((0, self.dim), np.float32), []
-        idx = torch.as_tensor(live, dtype=torch.long, device=self.device)
-        emb = self._emb[idx].float().cpu().numpy()
+        idx = torch.as_tensor(live, dtype=torch.long)
+
+        def host(t) -> torch.Tensor:
+            if isinstance(t, ShardedTensor):
+                return t.take(idx, device="cpu")
+            return t[idx.to(self.device)].cpu()
+
+        emb = host(self._emb).float().numpy()
         if self.quantized:
-            emb = emb * self._scales[idx].cpu().numpy()
+            emb = emb * host(self._scales).numpy()
         return emb, [self._meta[s] for s in live]

@@ -35,7 +35,15 @@ first stage is ops/hybrid.hybrid_topk_quantized(_packed), exact with
 respect to the dequantised corpus and certified per query; a query whose
 certificate fails is run again through hybrid_topk_dequant_full
 (_int8_escalate, counted in int8_escalations). MMR takes the object lane
-there, on dequantised rows. There are no mesh lanes yet.
+there, on dequantised rows.
+
+Corpus sharding (RAG_TPU_SHARD_CORPUS=N, with RAG_TPU_DATA_PARALLEL=M
+query replicas and RAG_TPU_SLICES=S slices; _build_mesh, as the JAX
+engine reads them): the store is row-sharded over a parallel/mesh.Mesh,
+and every first stage goes through parallel/sharded_search (f32 / bf16,
+int8 and its escalation). A sharded engine serves every request on the
+object lane, as the JAX engine does: supports_columnar is False, and
+dispatch_search, the MMR hot lane and the judged lane decline.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from rust_local_rag_tpu_torch.ops.hybrid import (
     hybrid_topk_quantized,
     hybrid_topk_quantized_packed,
     lex_width_for,
+    pack_topk,
     unpack_topk,
 )
 from rust_local_rag_tpu_torch.ops.mmr import (
@@ -82,7 +91,8 @@ from rust_local_rag_tpu_torch.ops.mmr import (
     similarity_matrix,
 )
 from rust_local_rag_tpu_torch.ops.native_bm25 import make_lexical_index
-from rust_local_rag_tpu_torch.ops.quantized import gather_dequantized
+from rust_local_rag_tpu_torch.parallel import mesh as mesh_mod
+from rust_local_rag_tpu_torch.parallel import sharded_search
 
 logger = logging.getLogger(__name__)
 
@@ -251,9 +261,11 @@ class RagEngine:
             corpus_dtype = torch.bfloat16
         elif dtype_env == "f32":
             corpus_dtype = torch.float32
+        self._build_mesh()
         self.store = ChunkStore(
             embedding_service.dim, corpus_dtype, device=self.device,
             quantized=bool(os.environ.get("RAG_TPU_INT8_CORPUS")),
+            mesh=self._mesh, corpus_axis=self._corpus_axes,
         )
         self.lexical_index = make_lexical_index()
         self.document_hashes: Dict[str, str] = {}
@@ -270,6 +282,51 @@ class RagEngine:
         self._rejection_unseen_cos = env_float("RAG_TPU_REJECTION_UNSEEN_COS", 1.0)
         self._rejection_unseen_judge = env_float("RAG_TPU_REJECTION_UNSEEN_JUDGE", 0.0)
         self.load_from_disk()
+
+    def _build_mesh(self) -> None:
+        """The corpus mesh from RAG_TPU_SHARD_CORPUS (shards),
+        RAG_TPU_DATA_PARALLEL (query replicas) and RAG_TPU_SLICES (shards =
+        slices x chips a slice, merged slice-innermost first), with the JAX
+        engine's warnings and fallbacks (JAX rag_engine.py:234-320): slices
+        that do not divide the shards are ignored, replicas without shards
+        are ignored, replicas x shards beyond the devices fall back to
+        corpus sharding alone, and fewer devices than shards run unsharded.
+        Devices: parallel/mesh.available_devices."""
+        self._mesh = None
+        self._data_axis = None
+        self._data_parallel = 1
+        self._corpus_axes = "corpus"
+        shards = int(os.environ.get("RAG_TPU_SHARD_CORPUS", "0") or 0)
+        dp = int(os.environ.get("RAG_TPU_DATA_PARALLEL", "1") or 1)
+        slices = int(os.environ.get("RAG_TPU_SLICES", "0") or 0)
+        if slices > 1 and (shards <= 1 or shards % slices):
+            logger.warning("RAG_TPU_SLICES=%d must divide RAG_TPU_SHARD_CORPUS=%d; ignoring slices", slices, shards)
+            slices = 0
+        if shards <= 1:
+            if dp > 1:
+                logger.warning("RAG_TPU_DATA_PARALLEL=%d requires RAG_TPU_SHARD_CORPUS>1 (query replicas ride "
+                               "the composed mesh); ignoring", dp)
+            return
+        devices = mesh_mod.available_devices(self.device)
+        corpus_shape = (slices, shards // slices) if slices > 1 else (shards,)
+        corpus_axes = ("slice", "corpus") if slices > 1 else ("corpus",)
+        if dp > 1 and len(devices) >= dp * shards:
+            self._mesh = mesh_mod.build_mesh((dp, *corpus_shape), ("data", *corpus_axes), devices[:dp * shards])
+            self._data_axis = "data"
+            self._data_parallel = dp
+            logger.info("Composed mesh: %d query replicas x %s corpus shards (%s)",
+                        dp, "x".join(str(s) for s in corpus_shape), devices[0].type)
+        elif len(devices) >= shards:
+            if dp > 1:
+                logger.warning("RAG_TPU_DATA_PARALLEL=%d x RAG_TPU_SHARD_CORPUS=%d needs %d devices but only %d "
+                               "exist; running with corpus sharding only", dp, shards, dp * shards, len(devices))
+            self._mesh = mesh_mod.build_mesh(corpus_shape, corpus_axes, devices[:shards])
+            logger.info("Corpus sharded over %s devices (%s)", "x".join(str(s) for s in corpus_shape),
+                        devices[0].type)
+        else:
+            logger.warning("RAG_TPU_SHARD_CORPUS=%d but only %d devices; running unsharded", shards, len(devices))
+        if self._mesh is not None and slices > 1:
+            self._corpus_axes = ("slice", "corpus")
 
     # ----- lifecycle -------------------------------------------------------
 
@@ -293,8 +350,10 @@ class RagEngine:
         return cls(data_dir, svc, reranker, device=device)
 
     def _empty_store(self, dim: int) -> ChunkStore:
-        """An empty store of the resident one's kind (dtype, int8 mode)."""
-        return ChunkStore(dim, self.store.dtype, device=self.device, quantized=self.store.quantized)
+        """An empty store of the resident one's kind (dtype, int8 mode,
+        mesh)."""
+        return ChunkStore(dim, self.store.dtype, device=self.device, quantized=self.store.quantized,
+                          mesh=self._mesh, corpus_axis=self._corpus_axes)
 
     def needs_reindex(self) -> bool:
         return self._needs_reindex
@@ -444,10 +503,12 @@ class RagEngine:
     def _prep_queries(self, queries: List[str], nq_pad: int) -> torch.Tensor:
         """[nq_pad, D] f32 query embeddings on the device: straight from the
         encoder when it can leave them there, else from the host path
-        (normalised, zero rows as padding)."""
-        dev = self.embedding_service.get_query_embeddings_device(queries)
-        if dev is not None and dev.shape[0] == nq_pad:
-            return dev
+        (normalised, zero rows as padding), which a sharded engine always
+        takes, as the JAX engine does."""
+        if self._mesh is None:
+            dev = self.embedding_service.get_query_embeddings_device(queries)
+            if dev is not None and dev.shape[0] == nq_pad:
+                return dev
         host = self.embedding_service.get_query_embeddings(queries)
         q_emb_p = np.zeros((nq_pad, host.shape[1]), dtype=np.float32)
         for i in range(len(queries)):
@@ -475,8 +536,10 @@ class RagEngine:
         on an int8 store, channel 4 the certificate), or with with_sims the
         unpacked outputs of hybrid_topk (hybrid_topk_quantized: the
         certificate fifth), the last the [Q, kb, kb] candidate
-        similarities."""
-        nq_pad = _bucket_batch(len(queries))
+        similarities. A sharded engine runs the sharded functions, its
+        padded batch a multiple of the query replicas."""
+        dp = self._data_parallel
+        nq_pad = -(-max(_bucket_batch(len(queries)), dp) // dp) * dp
         q_emb = self._prep_queries(queries, nq_pad)
         lex_slots, lex_vals = self._prep_lexical(queries, top_k, nq_pad)
         store = self.store
@@ -491,7 +554,14 @@ class RagEngine:
             self._f32(resolved.lexical),
             _bucket_k(k),
         )
-        if store.quantized:
+        if self._mesh is not None:
+            fn = (sharded_search.sharded_hybrid_topk_quantized if store.quantized
+                  else sharded_search.sharded_hybrid_topk)
+            out = fn(*args, mesh=self._mesh, corpus_axis=self._corpus_axes, with_sims=with_sims,
+                     data_axis=self._data_axis)
+            if not with_sims:
+                out = pack_topk(*out)
+        elif store.quantized:
             out = hybrid_topk_quantized(*args, with_sims=True) if with_sims else hybrid_topk_quantized_packed(*args)
         else:
             out = hybrid_topk(*args, with_sims=True) if with_sims else hybrid_topk_packed(*args)
@@ -688,10 +758,11 @@ class RagEngine:
     ):
         """Run the queries whose int8 certificate failed (near-ties at the
         quantisation boundary) again through the unconditionally exact
-        full-f32 lane (hybrid_topk_dequant_full) and patch their rows, and
-        with sims_b their candidate similarities over dequantised rows,
-        into the batch's arrays -> (vals, emb, lex, idx, sims_b). The
-        failing rows pad to a power of two, as a batch does."""
+        full-f32 lane (hybrid_topk_dequant_full; its sharded twin on a
+        mesh, the batch replicated) and patch their rows, and with sims_b
+        their candidate similarities over dequantised rows, into the
+        batch's arrays -> (vals, emb, lex, idx, sims_b). The failing rows
+        pad to a power of two, as a batch does."""
         nf = len(fail_rows)
         logger.info("int8 exactness certificate failed for %d/%d queries; "
                     "escalating to the full-f32 dequantized lane", nf, arrays[0].shape[0])
@@ -699,7 +770,7 @@ class RagEngine:
             self.int8_escalations += nf
         rows_idx = np.zeros(_bucket_batch(nf), dtype=np.int64)
         rows_idx[:nf] = fail_rows
-        out = hybrid_topk_dequant_full(
+        args = (
             q_emb[torch.as_tensor(rows_idx, device=q_emb.device)],
             self.store.corpus(),
             self.store.scales(),
@@ -709,8 +780,15 @@ class RagEngine:
             self._f32(resolved.embedding),
             self._f32(resolved.lexical),
             k,
-            with_sims=sims_b is not None,
         )
+        if self._mesh is not None:
+            out = sharded_search.sharded_hybrid_topk_dequant_full(
+                *args, mesh=self._mesh, corpus_axis=self._corpus_axes)
+            if sims_b is not None:
+                rows = self.store.gather_rows(out[3].clamp(min=0))  # [Q, k, D] f32, dequantised
+                out = (*out, torch.bmm(rows, rows.transpose(1, 2)))
+        else:
+            out = hybrid_topk_dequant_full(*args, with_sims=sims_b is not None)
         fixed = [x.cpu().numpy() for x in out]
         planes = [np.array(a) for a in arrays]
         for plane, f in zip(planes, fixed):
@@ -830,14 +908,6 @@ class RagEngine:
             out.append([results[i] for i in selected])
         return out
 
-    def _gather_rows(self, slots: np.ndarray) -> torch.Tensor:
-        """The slab rows of `slots` on the device (f32 or bf16 slab; an int8
-        slab's rows dequantised to f32)."""
-        idx = torch.as_tensor(slots, device=self.device).long()
-        if self.store.quantized:
-            return gather_dequantized(self.store.corpus(), self.store.scales(), idx)
-        return self.store.corpus()[idx]
-
     def _mmr_many(
         self, pooled: List[List[SearchResult]], top_k: int, diversity_factor: float
     ) -> List[List[SearchResult]]:
@@ -860,7 +930,7 @@ class RagEngine:
                 slots[qi, :n] = [self.store.slot_for_id(r.chunk_id) for r in results]
                 rel[qi, :n] = [r.score for r in results]
         sel = mmr_select_batch(
-            self._gather_rows(slots),
+            self.store.gather_rows(slots),
             torch.as_tensor(rel, device=self.device),
             _bucket_k(top_k),
             diversity_factor,
@@ -880,7 +950,7 @@ class RagEngine:
         p_pad = _bucket_k(n)
         slots = np.zeros(p_pad, dtype=np.int32)
         slots[:n] = [self.store.slot_for_id(r.chunk_id) for r in results]
-        emb = self._gather_rows(slots)
+        emb = self.store.gather_rows(slots)
         if self._device_mmr:
             rel_pad = np.full(p_pad, -np.inf, dtype=np.float32)
             rel_pad[:n] = rel
@@ -912,6 +982,13 @@ class RagEngine:
 
     # ----- hot-lane dispatch/fetch split -------------------------------------
 
+    def supports_columnar(self) -> bool:
+        """The columnar lanes (hot, MMR hot, judged) serve an unsharded
+        store; a sharded engine keeps every request on the object lane, as
+        the JAX engine does (its hot lane selects k rows where the object
+        lane selects 3k, so the two may order exact ties differently)."""
+        return self._mesh is None
+
     def dispatch_search(
         self,
         queries: List[str],
@@ -926,8 +1003,9 @@ class RagEngine:
         work, queued without waiting for it. Selects k = top_k directly
         (search_batch selects 3 * top_k and trims): both are exact, so
         result sets and scores agree; only the order of exactly tied
-        scores may differ. None for an empty store or no queries."""
-        if len(self.store) == 0 or not queries:
+        scores may differ. None for an empty store, no queries or a
+        sharded engine."""
+        if not self.supports_columnar() or len(self.store) == 0 or not queries:
             return None
         resolved = ResolvedWeights.from_query_weights(weights)
         top_k = max(top_k, 1)
@@ -948,10 +1026,11 @@ class RagEngine:
         )
 
     def supports_columnar_mmr(self) -> bool:
-        """The MMR hot lane serves f32 and bf16 slabs. An int8 store keeps
-        the object lane, as in the JAX package: its escalation gives
-        score-ordered planes, which cannot patch an MMR-ordered fetch."""
-        return not self.store.quantized
+        """The MMR hot lane serves unsharded f32 and bf16 slabs. An int8
+        store keeps the object lane, as in the JAX package: its escalation
+        gives score-ordered planes, which cannot patch an MMR-ordered
+        fetch."""
+        return self.supports_columnar() and not self.store.quantized
 
     def dispatch_search_mmr(
         self,
@@ -1060,8 +1139,9 @@ class RagEngine:
         """The judge-gated lane serves reranking at blend weight 0 (the judge
         as a rejection gate over the initial order): the blend is then a
         monotonic transform of the first-stage order, so only the top_k
-        head is emitted and the lane stays columnar."""
-        if self.reranker is None or not use_reranker:
+        head is emitted and the lane stays columnar. Not on a sharded
+        engine."""
+        if not self.supports_columnar() or self.reranker is None or not use_reranker:
             return False
         resolved = ResolvedWeights.from_query_weights(weights)
         return resolved.reranker == 0.0 and resolved.initial > 0.0
@@ -1214,7 +1294,8 @@ class RagEngine:
         """The `count` nearest chunks by dense score alone, as reranker
         candidates (calibrate_reranker; rag_engine.rs:415-460): hybrid_topk
         (hybrid_topk_quantized on an int8 store, escalating a failed
-        certificate) with no lexical hits at weights 1 / 0."""
+        certificate; their sharded twins on a mesh) with no lexical hits at
+        weights 1 / 0."""
         if len(self.store) == 0:
             return []
         q = _normalize_vec(self.embedding_service.get_query_embeddings([query])[0])
@@ -1225,7 +1306,14 @@ class RagEngine:
         lex_vals = np.zeros((1, width), dtype=np.float32)
         q_t = torch.as_tensor(q[None, :], device=self.device)
         store = self.store
-        res = (hybrid_topk_quantized if store.quantized else hybrid_topk)(
+        if self._mesh is not None:
+            fn = (sharded_search.sharded_hybrid_topk_quantized if store.quantized
+                  else sharded_search.sharded_hybrid_topk)
+            kw = {"mesh": self._mesh, "corpus_axis": self._corpus_axes}
+        else:
+            fn = hybrid_topk_quantized if store.quantized else hybrid_topk
+            kw = {}
+        res = fn(
             q_t,
             store.corpus(),
             *((store.scales(), store.l1()) if store.quantized else ()),
@@ -1235,6 +1323,7 @@ class RagEngine:
             self._f32(1.0),
             self._f32(0.0),
             kb,
+            **kw,
         )
         vals, emb, lex, idx = (x.cpu().numpy() for x in res[:4])
         if store.quantized and not bool(res[4][0]):

@@ -163,11 +163,15 @@ def _blend_union(
     return vals, emb_k, lex_k, idx, torch.bmm(cand, cand.transpose(1, 2))
 
 
-def _pack(vals, emb_k, lex_k, idx, *extra) -> torch.Tensor:
-    """[Q, 4 + len(extra), k] int32: the three float planes as their bits,
-    then idx, then any int32 planes in `extra`."""
+def pack_topk(vals, emb_k, lex_k, idx, exact=None) -> torch.Tensor:
+    """[Q, 4, k] int32: the three float planes as their bits, then idx;
+    with an int8 certificate `exact` [Q] bool, [Q, 5, k] with it broadcast
+    along k as channel 4 (1 = exact)."""
     bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
-    return torch.stack([bits(vals), bits(emb_k), bits(lex_k), idx.to(torch.int32), *extra], dim=1)
+    planes = [bits(vals), bits(emb_k), bits(lex_k), idx.to(torch.int32)]
+    if exact is not None:
+        planes.append(exact.to(torch.int32)[:, None].expand(-1, vals.shape[1]))
+    return torch.stack(planes, dim=1)
 
 
 def hybrid_topk_packed(
@@ -176,7 +180,7 @@ def hybrid_topk_packed(
     """hybrid_topk with the four outputs packed into one [Q, 4, k] int32
     tensor, float planes carried as their bits: 0=combined, 1=embedding,
     2=lexical_norm, 3=idx. One device->host copy fetches everything."""
-    return _pack(*hybrid_topk(
+    return pack_topk(*hybrid_topk(
         queries, corpus, valid_mask, lex_slots, lex_vals, w_embedding, w_lexical, k
     ))
 
@@ -217,7 +221,7 @@ def hybrid_topk_packed_mmr(
     ok = sel >= 0
     safe = sel.clamp(min=0)
     take = lambda a: torch.gather(a, 1, safe)  # noqa: E731
-    return _pack(
+    return pack_topk(
         torch.where(ok, take(vals_c), NEG_INF),
         torch.where(ok, take(emb_c), NEG_INF),
         torch.where(ok, take(lex_c), 0.0),
@@ -347,11 +351,10 @@ def hybrid_topk_quantized_packed(
     """hybrid_topk_quantized packed into one [Q, 5, k] int32 tensor: the
     hot lane's four channels, then channel 4, the certificate (1 =
     exact) broadcast along k."""
-    vals, emb_k, lex_k, idx, exact = hybrid_topk_quantized(
+    return pack_topk(*hybrid_topk_quantized(
         queries, values, scales, l1, valid_mask, lex_slots, lex_vals, w_embedding, w_lexical, k,
         candidates=candidates,
-    )
-    return _pack(vals, emb_k, lex_k, idx, exact.to(torch.int32)[:, None].expand(-1, k))
+    ))
 
 
 def hybrid_topk_dequant_full(
@@ -372,12 +375,8 @@ def hybrid_topk_dequant_full(
     then the exact selection and the union blend. The slab is widened to
     f32 DEQUANT_BLOCK_ROWS rows at a time, so the f32 corpus is never
     held whole; the [Q, N] plane is the failing queries' only."""
-    q32 = queries.float()
     n = values.shape[0]
-    emb = torch.empty((q32.shape[0], n), dtype=torch.float32, device=q32.device)
-    for r0 in range(0, n, DEQUANT_BLOCK_ROWS):
-        r1 = min(r0 + DEQUANT_BLOCK_ROWS, n)
-        emb[:, r0:r1] = torch.mm(q32, values[r0:r1].float().t()) * scales[r0:r1, 0]
+    emb = dequant_scores(queries.float(), values, scales)
     emb.masked_fill_(~valid_mask[None, :], NEG_INF)
     k_eff = min(k, n)
     e_vals, e_idx = _select(emb, k_eff)
@@ -385,6 +384,18 @@ def hybrid_topk_dequant_full(
         emb, e_vals, e_idx, lex_slots, lex_vals, w_embedding, w_lexical, k, k_eff,
         rows_fn=lambda safe: gather_dequantized(values, scales, safe), with_sims=with_sims,
     )
+
+
+def dequant_scores(q32: torch.Tensor, values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[Q, N] f32 scores <q, v_i8> * scale_i of f32 queries against an
+    int8 slab (TF32 off), the slab widened to f32 DEQUANT_BLOCK_ROWS rows at
+    a time."""
+    n = values.shape[0]
+    emb = torch.empty((q32.shape[0], n), dtype=torch.float32, device=q32.device)
+    for r0 in range(0, n, DEQUANT_BLOCK_ROWS):
+        r1 = min(r0 + DEQUANT_BLOCK_ROWS, n)
+        emb[:, r0:r1] = torch.mm(q32, values[r0:r1].float().t()) * scales[r0:r1, 0]
+    return emb
 
 
 def unpack_topk(arr, nq: int, k: int):

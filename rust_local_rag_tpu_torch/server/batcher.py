@@ -13,7 +13,8 @@ Lanes, chosen per batch as in the JAX batcher:
     dispatch_search -> judge_columnar -> fetch_judged ->
     results_from_judged; any failure there falls back to the general lane
     and adds one to ``judged_fallbacks``;
-  * general lane (everything else, MMR with the reranker included):
+  * general lane (everything else, MMR with the reranker included, and
+    every request to a sharded engine, whose supports_columnar is False):
     engine.search_with_diversity_batch, the object lane.
 A lane that declines falls to the general lane after releasing the read
 lock: the lock prefers writers, so a nested read could wait forever
@@ -320,12 +321,14 @@ class SearchBatcher:
                 self._inflight -= 1
                 self._inflight_cv.notify_all()
 
-    @staticmethod
-    def _hot_lane(batch: List[_Item]) -> bool:
-        return batch[0].diversity == 0.0 and not batch[0].use_reranker
+    def _hot_lane(self, batch: List[_Item]) -> bool:
+        """Rerank off, diversity 0, on an engine that serves the columnar
+        lanes (not a sharded one)."""
+        return batch[0].diversity == 0.0 and not batch[0].use_reranker and self.engine.supports_columnar()
 
     def _mmr_hot_lane(self, batch: List[_Item]) -> bool:
-        """Diversity search with the reranker off."""
+        """Diversity search with the reranker off (supports_columnar_mmr
+        declines for a sharded engine and an int8 store)."""
         return batch[0].diversity > 0.0 and not batch[0].use_reranker and self.engine.supports_columnar_mmr()
 
     def _judge_lane(self, batch: List[_Item]) -> bool:
