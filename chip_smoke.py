@@ -228,7 +228,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the launches counted a burst, against the unsharded engine on the
    card and a CPU copy of the same sharded engine (the CPU mesh; the
    card's encoder and judge), every request on the object lane; the
-   4-shard engine saved and reloaded.
+   4-shard engine saved and reloaded;
+12. train (after bench_server): the trainers at the committed assets'
+   widths on the first 20,000 lines of .cache/train_corpus.txt, every cut
+   from the JAX defaults in the phase's first line. train_step_check: one
+   hard-negative InfoNCE step of the committed encoder on 64 pairs of the
+   trainer's own batcher (PairBatcher.mixed_hn_batch over its train
+   split; the BM25 premine it writes is the one the trainer below reads)
+   and one pairwise + calibration step of the committed judge on 64
+   prompt pairs, each on the card and on a CPU copy: losses within 2e-2,
+   the gradients' global cosine >= 0.999 and each parameter's >= 0.99;
+   train_sharded: the encoder step on a (2, 2) ("data", "model") mesh
+   standing on the card against the (1, 1) mesh's and the plain module's,
+   under the same bounds; train_encoder and train_reranker: `python -m
+   rust_local_rag_tpu_torch.training.<trainer>` (cold start, default
+   widths, RAG_TPU_FUSED_ATTN=1 in its environment), which must exit 0
+   with finite losses, the last dispatch's below the first, 0 attention
+   launches, a checkpoint whose reload differs by at most f16 rounding
+   and that the serving loaders load and serve; each trainer's summary
+   line (steps/s, pairs/s, peak memory, each dispatch's host / device
+   split) is printed.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -274,11 +293,15 @@ from rust_local_rag_tpu_torch.engine import persistence
 from rust_local_rag_tpu_torch.engine.chunk_store import ChunkMeta, ChunkStore
 from rust_local_rag_tpu_torch.engine.rag_engine import PendingSearch, RagEngine, _bucket_k
 from rust_local_rag_tpu_torch.kernels import build
-from rust_local_rag_tpu_torch.models.encoder import default_asset
+from rust_local_rag_tpu_torch.models.encoder import Encoder, default_asset, load_encoder_checkpoint
 from rust_local_rag_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
-from rust_local_rag_tpu_torch.models.reranker import TransformerReranker
-from rust_local_rag_tpu_torch.models.reranker_service import RerankerCandidate, RerankerService
-from rust_local_rag_tpu_torch.models.tokenizer import WordPieceTokenizer
+from rust_local_rag_tpu_torch.models.reranker import TransformerReranker, load_reranker_checkpoint
+from rust_local_rag_tpu_torch.models.reranker_service import (
+    DEFAULT_PROMPT_TEMPLATE,
+    RerankerCandidate,
+    RerankerService,
+)
+from rust_local_rag_tpu_torch.models.tokenizer import WordPieceTokenizer, load_tokenizer
 from rust_local_rag_tpu_torch.ops.attention import attention_plain, fused_attention
 from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
 from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
@@ -331,11 +354,15 @@ from rust_local_rag_tpu_torch.parallel.sharded_search import (
     sharded_hybrid_topk_quantized,
     sharded_topk,
 )
+from rust_local_rag_tpu_torch.parallel.train import info_nce_loss_hn, place_batch, shard_params
 from rust_local_rag_tpu_torch.server.app import build_runtime, prepare
 from rust_local_rag_tpu_torch.server.batcher import SearchBatcher
 from rust_local_rag_tpu_torch.server.fastpath import HttpServer
 from rust_local_rag_tpu_torch.server.formatting import format_search_results
 from rust_local_rag_tpu_torch.server.http_api import App
+from rust_local_rag_tpu_torch.training.pairs import PairBatcher
+from rust_local_rag_tpu_torch.training.train_encoder import load_training_paragraphs, split_holdout
+from rust_local_rag_tpu_torch.training.train_reranker import PromptPairBatcher, decision_ids, pair_loss
 from rust_local_rag_tpu_torch.utils.rwlock import RwLock
 
 from eval_harness.corpus import generate_corpus
@@ -3912,6 +3939,235 @@ def run_sharded(engine, dev, card: str, tmp: str, seed: int, rng, probs) -> dict
     return {"launches": fn["launches"] + eng["launches"], "functions": fn, "engines": eng}
 
 
+# ------------------------------------------------------------- training ----
+
+# the train phase: the trainers at the committed assets' widths on a cut
+# corpus (the JAX defaults: the whole harvested corpus, 8,000 / 6,000 steps,
+# eval bank 1,024, wheel READMEs mixed into the judge's corpus)
+TRAIN_CORPUS = os.path.join(".cache", "train_corpus.txt")
+TRAIN_LINES = 20000
+TRAIN_PAIRS = 64  # train_step_check's batch
+ENCODER_ARGS = ["--hard-negatives", "--batch", "256", "--steps", "64", "--scan", "16", "--warmup", "16",
+                "--eval-every", "32", "--eval-bank", "512"]
+RERANKER_ARGS = ["--steps", "32", "--scan", "16", "--batch", "128", "--warmup", "8", "--eval-every", "32",
+                 "--readme-corpus", "0"]
+TRAIN_CUTS = {"corpus_lines": [TRAIN_LINES, "all of the harvest (182,518 paragraphs for the committed encoder)"],
+              "encoder_steps": [64, 8000], "encoder_eval_bank": [512, 1024], "encoder_eval_every": [32, 1600],
+              "encoder_warmup": [16, 400], "reranker_steps": [32, 6000], "reranker_batch": [128, 256],
+              "reranker_warmup": [8, 400], "reranker_eval_every": [32, 1600], "reranker_readme_corpus": [0, 1]}
+# one loss-and-gradient step on the card against a CPU copy, both with bf16
+# activations: the encoder tests hold bf16 embeddings to 2e-2 and cosine
+# 0.999 (tests/test_torch_encoder.py); the loss is a mean of log-softmaxes
+# of those embeddings over temperature 0.05, the gradients sums of their
+# products. Each parameter's gradient: cosine 0.99 (a bf16 product
+# carries 2^-8 relative error; summed over a batch it keeps the direction)
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_GRAD_COS = 0.999
+TRAIN_PARAM_COS = 0.99
+F16_REL = 2.0 ** -11  # round to nearest f16: half an ulp, relative
+
+
+def grad_agreement(got: dict, want: dict) -> dict:
+    """{global cosine, worst parameter cosine and its name, worst norm ratio}
+    of two {name: gradient} maps (CPU float64 arithmetic)."""
+    dot = na = nb = 0.0
+    worst, worst_name, ratio = 1.0, "", 1.0
+    for name, g in got.items():
+        a, b = g.double().cpu().flatten(), want[name].double().cpu().flatten()
+        d, x, y = float(a @ b), float(a @ a), float(b @ b)
+        dot, na, nb = dot + d, na + x, nb + y
+        cos = d / max((x * y) ** 0.5, 1e-300) if x > 0 or y > 0 else 1.0
+        if cos < worst:
+            worst, worst_name = cos, name
+        if y > 0:
+            ratio = max(ratio, abs((x / y) ** 0.5 - 1.0) + 1.0)
+    return {"global_cos": dot / max((na * nb) ** 0.5, 1e-300), "worst_param_cos": worst,
+            "worst_param": worst_name, "worst_norm_ratio": ratio}
+
+
+def check_grads(what: str, loss_got: float, loss_want: float, agree: dict) -> None:
+    if not (np.isfinite(loss_got) and abs(loss_got - loss_want) <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"{what}: loss {loss_got} against {loss_want} (tol {TRAIN_LOSS_TOL})")
+    if agree["global_cos"] < TRAIN_GRAD_COS or agree["worst_param_cos"] < TRAIN_PARAM_COS:
+        raise AssertionError(f"{what}: gradients disagree {agree}")
+
+
+def encoder_step(model, batch, dev) -> tuple:
+    """(loss, {name: grad}) of one hard-negative InfoNCE step of `model`
+    (an Encoder, or ShardedParams with a placed batch) on `dev`."""
+    if isinstance(model, Encoder):
+        model.zero_grad(set_to_none=True)
+        loss = info_nce_loss_hn(model, *[torch.from_numpy(x).to(dev) for x in batch])
+        loss.backward()
+        return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad()
+    loss = info_nce_loss_hn(model, *batch)
+    loss.backward()
+    loss = loss.detach()
+    grads = {}
+    for name, blocks in model.blocks.items():
+        gs = [b.grad for b in blocks]
+        grads[name] = gs[0] if len(gs) == 1 else torch.cat(gs, dim=model.specs[name].index("model"))
+    return float(loss), grads
+
+
+def run_trainer(module: str, args: list, env: dict, tmp: str, name: str) -> dict:
+    """`python -m rust_local_rag_tpu_torch.training.<module>` with `args`;
+    -> its train_summary line, every line of its output logged."""
+    out_path = os.path.join(tmp, f"{name}.log")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f:
+        proc = subprocess.run([sys.executable, "-m", f"rust_local_rag_tpu_torch.training.{module}", *args],
+                              cwd=ROOT, env=env, stdout=out_f, stderr=subprocess.STDOUT, timeout=900)
+    seconds = time.perf_counter() - t0
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        log(f"{name}| {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}")
+    summary = next(json.loads(ln)["train_summary"] for ln in reversed(lines) if ln.startswith('{"train_summary"'))
+    losses = summary["losses"]
+    if not (losses and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{module}: losses {losses} are not finite and falling")
+    if summary["fused_attention_launches"] != 0 or not summary["written"]:
+        raise AssertionError(f"{module}: {summary['fused_attention_launches']} attention launches, "
+                             f"written {summary['written']}")
+    summary["process_s"] = seconds
+    return summary
+
+
+def check_f16_reload(delta: float, state: dict, what: str) -> float:
+    """The trainer's reload |delta| against half an f16 ulp of the largest
+    weight; -> that bound."""
+    top = max(float(v.abs().max()) for v in state.values())
+    if not delta <= F16_REL * top:
+        raise AssertionError(f"{what}: reload max |delta| {delta} above f16 rounding ({F16_REL} x {top})")
+    return F16_REL * top
+
+
+def run_train(seed: int, dev, card: str, tmp: str) -> dict:
+    """The training slice at the committed assets' widths (phase train)."""
+    log({"train_cuts": TRAIN_CUTS, "card": card})
+    home = os.path.join(tmp, "home")  # the premine caches of this run
+    os.makedirs(home)
+    corpus = os.path.join(tmp, f"train_corpus_{TRAIN_LINES}.txt")
+    with open(os.path.join(ROOT, TRAIN_CORPUS), encoding="utf-8") as src, open(corpus, "w", encoding="utf-8") as dst:
+        for i, line in enumerate(src):
+            if i >= TRAIN_LINES:
+                break
+            dst.write(line)
+    tok_path = default_asset("tokenizer.json")
+    tok = load_tokenizer(tok_path)
+    out: dict = {}
+
+    # train_step_check: one hard-negative InfoNCE step of the committed
+    # encoder on 64 pairs of the trainer's own batcher (the same train split
+    # and seed, so the trainer below finds this premine in the cache)
+    with env_set("HOME", home):
+        t0 = time.perf_counter()
+        paragraphs, _ = load_training_paragraphs(corpus, True)
+        train_pars, _ = split_holdout(paragraphs, 0, 2048)
+        batcher = PairBatcher(train_pars, tok, seed=seed, query_prefix="search_query: ",
+                              doc_prefix="search_document: ")
+        batcher.premine_hard_negatives()
+        premine_s = time.perf_counter() - t0
+    batch = batcher.mixed_hn_batch(TRAIN_PAIRS)
+    enc_cpu, _ = load_encoder_checkpoint(default_asset("encoder.safetensors"))
+    enc_dev = copy.deepcopy(enc_cpu).to(dev)
+    t0 = time.perf_counter()
+    loss_dev, grads_dev = encoder_step(enc_dev, batch, dev)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = encoder_step(enc_cpu, batch, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    agree = grad_agreement(grads_dev, grads_cpu)
+    log({"train_step_check": "encoder", "pairs": TRAIN_PAIRS, "shapes": [list(x.shape) for x in batch],
+         "loss": loss_dev, "cpu_loss": loss_cpu, "loss_tol": TRAIN_LOSS_TOL, **agree, "grad_cos_min": TRAIN_GRAD_COS,
+         "param_cos_min": TRAIN_PARAM_COS, "premine_s": premine_s, "card_s": dev_s, "cpu_s": cpu_s, "card": card})
+    check_grads("encoder step", loss_dev, loss_cpu, agree)
+    out["encoder_step"] = {"loss": loss_dev, "cpu_loss": loss_cpu, **agree}
+
+    # the judge: one pairwise + calibration loss step on 64 prompt pairs
+    rr_cpu, rr_meta = load_reranker_checkpoint(default_asset("reranker.safetensors"))
+    with env_set("HOME", home):
+        prompts = PromptPairBatcher(train_pars[:4096], tok, DEFAULT_PROMPT_TEMPLATE,
+                                    seq_len=int(rr_meta.get("train_seq_len", "192")), seed=seed + 1)
+    pi, pm, ni, nm = prompts.batch(TRAIN_PAIRS)
+    yes_id, no_id = decision_ids(tok, prompts.cls_id, prompts.sep_id)
+    rr_dev = copy.deepcopy(rr_cpu).to(dev)
+    found = {}
+    for name, model, d in (("card", rr_dev, dev), ("cpu", rr_cpu, torch.device("cpu"))):
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = pair_loss(model, *[torch.from_numpy(x).to(d) for x in (pi, pm, ni, nm)], yes_id, no_id)
+        loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        found[name] = (float(loss.detach()), {k: p.grad for k, p in model.named_parameters()},
+                       time.perf_counter() - t0)
+    agree = grad_agreement(found["card"][1], found["cpu"][1])
+    log({"train_step_check": "reranker", "pairs": TRAIN_PAIRS, "seq_len": pi.shape[1], "loss": found["card"][0],
+         "cpu_loss": found["cpu"][0], "loss_tol": TRAIN_LOSS_TOL, **agree, "card_s": found["card"][2],
+         "cpu_s": found["cpu"][2], "card": card})
+    check_grads("reranker step", found["card"][0], found["cpu"][0], agree)
+    out["reranker_step"] = {"loss": found["card"][0], "cpu_loss": found["cpu"][0], **agree}
+    del rr_dev, rr_cpu, found
+
+    # train_sharded: the encoder step on a (2, 2) mesh standing on the card
+    # against the (1, 1) mesh's
+    steps = {}
+    for shape in ((1, 1), (2, 2)):
+        mesh = build_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
+        params = shard_params(copy.deepcopy(enc_cpu), mesh)
+        steps[shape] = encoder_step(params, place_batch(batch, mesh), dev)
+        del params
+    agree = grad_agreement(steps[(2, 2)][1], steps[(1, 1)][1])
+    log({"train_sharded": "(2, 2) on one card against (1, 1)", "stand_in": "4 mesh positions on 1 card",
+         "loss": steps[(2, 2)][0], "loss_1x1": steps[(1, 1)][0], "encoder_loss": loss_dev, **agree, "card": card})
+    check_grads("sharded step", steps[(2, 2)][0], steps[(1, 1)][0], agree)
+    check_grads("(1, 1) step against the plain module", steps[(1, 1)][0], loss_dev,
+                grad_agreement(steps[(1, 1)][1], grads_dev))
+    out["sharded"] = {"loss": steps[(2, 2)][0], "loss_1x1": steps[(1, 1)][0], **agree}
+    del steps, enc_dev, grads_dev, grads_cpu
+    torch.cuda.empty_cache()
+
+    # the trainers themselves, as a user runs them, with the attention
+    # kernel switched on in their environment (training must not take it)
+    env = dict(os.environ, HOME=home, RAG_TPU_FUSED_ATTN="1",
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    common = ["--corpus", corpus, "--tokenizer", tok_path]
+    enc_out = os.path.join(tmp, "encoder", "encoder.safetensors")
+    summary = run_trainer("train_encoder", common + ENCODER_ARGS + ["--out", enc_out], env, tmp, "train_encoder")
+    enc, meta = load_encoder_checkpoint(enc_out)
+    bound = check_f16_reload(summary["reload_max_abs_delta"], enc.state_dict(), "train_encoder")
+    served = encoder_module.TransformerEncoderModel(enc, tok, query_prefix=meta.get("query_prefix", ""),
+                                                   document_prefix=meta.get("document_prefix", ""), device=dev)
+    embs = served.encode(train_pars[:8])
+    if not (np.isfinite(embs).all() and embs.shape == (8, 768)
+            and np.allclose(np.linalg.norm(embs, axis=1), 1.0, atol=1e-3)):
+        raise AssertionError("the trained encoder does not serve finite unit [8, 768] embeddings")
+    log({"train_encoder": summary, "f16_bound": bound, "served": list(embs.shape), "card": card})
+    out["train_encoder"] = summary
+    del served, enc
+
+    rr_out = os.path.join(tmp, "reranker", "reranker.safetensors")
+    summary = run_trainer("train_reranker", common + RERANKER_ARGS + ["--out", rr_out], env, tmp, "train_reranker")
+    rr, meta = load_reranker_checkpoint(rr_out)
+    bound = check_f16_reload(summary["reload_max_abs_delta"], rr.state_dict(), "train_reranker")
+    judge = TransformerReranker(rr, tok, int(meta["train_seq_len"]), device=dev)
+    scored = judge.score_prompts([DEFAULT_PROMPT_TEMPLATE.format(query=p[:60], document="a.pdf", page="1",
+                                                                 section="N/A", text=p) for p in train_pars[:8]])
+    if not (len(scored) == 8 and all(np.isfinite(x).all() and 0.0 <= x[0] <= 1.0 for x in scored)):
+        raise AssertionError(f"the trained reranker does not serve finite scores: {scored}")
+    log({"train_reranker": summary, "f16_bound": bound, "served": len(scored), "card": card})
+    out["train_reranker"] = summary
+    del judge, rr
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4124,6 +4380,12 @@ def main(argv=None) -> int:
             _, server_launches = run_bench_server(card)
     finally:
         shutil.rmtree(late, ignore_errors=True)
+    train_tmp = tempfile.mkdtemp(prefix="rag_port_smoke_train_")
+    try:
+        with phase("train", card, seconds):
+            run_train(args.seed, dev, card, train_tmp)
+    finally:
+        shutil.rmtree(train_tmp, ignore_errors=True)
     log({"phase_seconds": seconds, "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],

@@ -198,15 +198,24 @@ class Encoder(nn.Module):
         return pooled / torch.clamp(norm, min=1e-10)
 
 
+def load_encoder_checkpoint_full(path: str):
+    """-> (state_dict of f32 tensors, EncoderConfig or None, metadata dict),
+    as the JAX package's load_encoder_checkpoint_full (None for a file
+    without an ``encoder_config`` entry)."""
+    tensors, meta = read_safetensors(path)
+    cfg_json = meta.get("encoder_config")
+    cfg = EncoderConfig.from_json(cfg_json) if cfg_json else None
+    return {k: torch.from_numpy(v) for k, v in tensors.items()}, cfg, meta
+
+
 def load_encoder_checkpoint(path: str):
     """-> (Encoder with the file's weights, metadata dict). The config
     comes from the ``encoder_config`` metadata entry."""
-    tensors, meta = read_safetensors(path)
-    cfg_json = meta.get("encoder_config")
-    if not cfg_json:
+    state, cfg, meta = load_encoder_checkpoint_full(path)
+    if cfg is None:
         raise ValueError(f"{path}: no encoder_config in the safetensors metadata")
-    enc = Encoder(EncoderConfig.from_json(cfg_json))
-    enc.load_state_dict({k: torch.from_numpy(v) for k, v in tensors.items()})
+    enc = Encoder(cfg)
+    enc.load_state_dict(state)
     return enc, meta
 
 

@@ -127,13 +127,15 @@ class NativeWordPieceTokenizer:
         ids, lens = self._encode_native([text], self.max_len)
         return ids[0, : int(lens[0])].tolist()
 
-    def encode_batch_headtail(self, texts: Sequence[str], seq_len: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Fixed [B, seq_len] judge encoding (tokenizer.headtail_pack) of the
-        untruncated ids. The kernel encodes into a buffer of max(1024,
-        2 seq_len) ids; a row that fills it (its true tail unknown) goes to
-        the pure-Python tokenizer."""
+    def tokenize_full(self, text: str) -> List[int]:
+        """Untruncated [CLS] ... [SEP] ids."""
+        return self.tokenize_full_batch([text])[0]
+
+    def tokenize_full_batch(self, texts: Sequence[str], cap: int = 1024) -> List[List[int]]:
+        """Untruncated ids of each text. The kernel encodes into a buffer of
+        `cap` ids; a row that fills it (its true tail unknown) goes to the
+        pure-Python tokenizer, counted in routed_texts."""
         texts = list(texts)
-        cap = max(1024, 2 * seq_len)
         routed = set(self._route(texts))
         native = [i for i in range(len(texts)) if i not in routed]
         rows: List[List[int]] = [[] for _ in texts]
@@ -148,7 +150,16 @@ class NativeWordPieceTokenizer:
             routed.update(full)
         for i in routed:
             rows[i] = self._py.tokenize_full(texts[i])
-        return headtail_pack(rows, seq_len, self._pad)
+        return rows
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self._py.token_to_id(token)
+
+    def encode_batch_headtail(self, texts: Sequence[str], seq_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Fixed [B, seq_len] judge encoding (tokenizer.headtail_pack) of the
+        untruncated ids (tokenize_full_batch with a buffer of max(1024,
+        2 seq_len) ids)."""
+        return headtail_pack(self.tokenize_full_batch(texts, cap=max(1024, 2 * seq_len)), seq_len, self._pad)
 
     def encode_batch(
         self, texts: Sequence[str], buckets: Sequence[int] = DEFAULT_BUCKETS

@@ -303,12 +303,23 @@ class WordPieceTokenizer:
     def tokenize(self, text: str) -> List[int]:
         return self.tokenize_full(text)[: self.max_len]
 
+    def tokenize_full_batch(self, texts: Sequence[str]) -> List[List[int]]:
+        """Untruncated ids of each text (the trainers' batch encode)."""
+        return [self.tokenize_full(t) for t in texts]
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        """The id of a vocabulary entry or added token, None if absent."""
+        for table in (self._raw_added, self._norm_added, self._vocab):
+            if token in table:
+                return table[token]
+        return None
+
     def encode_batch_headtail(
         self, texts: Sequence[str], seq_len: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Fixed-shape [B, seq_len] judge encoding of the untruncated ids
         (see headtail_pack), padded with [PAD]."""
-        return headtail_pack([self.tokenize_full(t) for t in texts], seq_len, self._pad)
+        return headtail_pack(self.tokenize_full_batch(texts), seq_len, self._pad)
 
     def encode_batch(
         self, texts: Sequence[str], buckets: Sequence[int] = DEFAULT_BUCKETS

@@ -37,6 +37,9 @@ def _joined(text: str) -> bytes:
     return "\x01".join(tokenize(text)).encode("utf-8")
 
 
+joined_tokens = _joined
+
+
 class NativeLexicalIndex:
     """ops/bm25.LexicalIndex's interface, backed by csrc/lexical.cpp."""
 
@@ -103,7 +106,11 @@ class NativeLexicalIndex:
         (the C++ core only counts the tokens). A chunk whose text tokenises
         to nothing is not indexed, and its id mapping is dropped again, as
         the Python index keeps no entry for it."""
-        data = _joined(text)
+        self.add_joined(chunk_id, _joined(text), slot)
+
+    def add_joined(self, chunk_id: str, data: bytes, slot: Optional[int] = None) -> None:
+        """add_chunk for a text already tokenised by joined_tokens (a text
+        indexed into several indexes is tokenised once)."""
         with self._lock:
             s = self._slot_for(chunk_id, slot)
             self._lib.bm25_add_tokens(self._h, s, data, len(data))

@@ -1,3 +1,4 @@
-"""Corpus sharding of the port (port of rust_local_rag_tpu/parallel/ without
-train.py): a device mesh, row-sharded tensors, and the sharded exact
-first stages with their hierarchical merge, driven from one process."""
+"""Parallelism of the port (port of rust_local_rag_tpu/parallel/): a device
+mesh, row-sharded tensors, the sharded exact first stages with their
+hierarchical merge, and the encoder's data x model parallel training step
+(train.py), all driven from one process."""

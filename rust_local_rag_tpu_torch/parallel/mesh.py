@@ -210,8 +210,9 @@ class ShardedTensor:
                 out.append((t, self._shard_of(self.mesh, self.axes, pos)))
         return out
 
-    def _shards(self) -> list:
-        """One tensor a shard, in shard order (the first replica)."""
+    def shards(self) -> list:
+        """One tensor a shard, in shard order: the first replica, the one on
+        the device of the shard's first mesh position."""
         first: dict = {}
         for t, s in self.blocks():
             first.setdefault(s, t)
@@ -222,7 +223,7 @@ class ShardedTensor:
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor in row order on `device` (default: the lead)."""
         dev = self.device if device is None else torch.device(device)
-        return torch.cat([t.to(dev) for t in self._shards()])
+        return torch.cat([t.to(dev) for t in self.shards()])
 
     def take(self, slots, device=None) -> torch.Tensor:
         """Rows `slots` ([...] int, global) gathered from their shards onto
@@ -231,7 +232,7 @@ class ShardedTensor:
         slots = torch.as_tensor(slots, device=dev).long()
         out = torch.empty((*slots.shape, *self.shape[1:]), dtype=self.dtype, device=dev)
         owner = torch.div(slots, self.rows, rounding_mode="floor")
-        for s, t in enumerate(self._shards()):
+        for s, t in enumerate(self.shards()):
             sel = owner == s
             local = (slots[sel] - s * self.rows).to(t.device)
             out[sel] = t[local].to(dev)
@@ -257,7 +258,7 @@ class ShardedTensor:
         holds n / shards rows now, so rows move between shards: every
         block is rebuilt from the old blocks that overlap it, on its own
         device."""
-        old_rows, olds = self.rows, self._shards()
+        old_rows, olds = self.rows, self.shards()
         new_rows = n // self.n_shards
 
         def make(dev, s):

@@ -23,10 +23,12 @@ from rust_local_rag_tpu_torch.server.app import build_runtime
 
 PKG = os.path.dirname(rust_local_rag_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG)
-# the card's machine has none of the last five; the eval harness's client
-# and runner import requests and yaml; scripts/ holds the JAX experiments
+# the card's machine has none of safetensors, tokenizers, aiohttp and the
+# JAX training stack (optax, flax, orbax: installed here, so a trainer that
+# picked one up would pass on the CPU only); the eval harness's client and
+# runner import requests and yaml; scripts/ holds the JAX experiments
 FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "scripts", "safetensors", "tokenizers", "aiohttp", "requests",
-             "yaml")
+             "yaml", "optax", "flax", "orbax")
 
 
 def _port_files():
@@ -91,6 +93,20 @@ def test_ast_check_sees_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\nfrom rust_local_rag_tpu.ops import hybrid\n")
     assert [m.split(".")[0] for m in _imported(str(p))] == ["jax", "rust_local_rag_tpu"]
+
+
+def test_ast_check_sees_the_jax_training_stack(tmp_path):
+    """optax, flax and orbax are importable on this host, so only the
+    check keeps the trainers off them; it sees every import form."""
+    import importlib.util
+
+    assert importlib.util.find_spec("optax") is not None
+    p = tmp_path / "m.py"
+    p.write_text("import optax\nfrom flax import linen as nn\nimport orbax.checkpoint as ocp\n"
+                 "def f():\n    return __import__('optax')\n")
+    hits = [m for m in _imported(str(p)) if m.split(".")[0] in FORBIDDEN]
+    assert hits == ["optax", "flax", "orbax.checkpoint", "optax"]
+    assert any(os.path.relpath(f, PKG).startswith("training") for f in _port_files())
 
 
 @pytest.fixture
@@ -211,3 +227,16 @@ def test_weights_resolve_like_jax(monkeypatch):
     finally:
         reset_weight_cache()
         jcfg.reset_weight_cache()
+
+
+@pytest.mark.parametrize("module", ["train_encoder", "train_reranker"])
+def test_trainers_default_to_cuda_and_refuse(no_card, module, tmp_path):
+    """`python -m rust_local_rag_tpu_torch.training.<module>` trains on the
+    card unless --device cpu is given, and raises without one before it
+    reads any data."""
+    import importlib
+
+    mod = importlib.import_module(f"rust_local_rag_tpu_torch.training.{module}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(["--corpus", str(tmp_path / "missing.txt"), "--out", str(tmp_path / "m.safetensors")])
+    assert not os.listdir(tmp_path)
