@@ -238,16 +238,42 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and one pairwise + calibration step of the committed judge on 64
    prompt pairs, each on the card and on a CPU copy: losses within 2e-2,
    the gradients' global cosine >= 0.999 and each parameter's >= 0.99;
-   train_sharded: the encoder step on a (2, 2) ("data", "model") mesh
-   standing on the card against the (1, 1) mesh's and the plain module's,
-   under the same bounds; train_encoder and train_reranker: `python -m
+   train_sharded: the committed encoder's step on a (1, 1) ("data",
+   "model") mesh against the plain module's, under the same bounds, then a
+   seeded encoder at the committed widths with a vocabulary of 8,192 rows
+   (the committed 8,193 does not divide over a model axis of 2, which the
+   port refuses as JAX does; ids past it become [UNK]) on a (2, 2) mesh
+   standing on the card against its (1, 1) mesh: loss within 5e-3,
+   gradients' global cosine >= 0.9995; train_encoder and train_reranker: `python -m
    rust_local_rag_tpu_torch.training.<trainer>` (cold start, default
    widths, RAG_TPU_FUSED_ATTN=1 in its environment), which must exit 0
    with finite losses, the last dispatch's below the first, 0 attention
    launches, a checkpoint whose reload differs by at most f16 rounding
    and that the serving loaders load and serve; each trainer's summary
    line (steps/s, pairs/s, peak memory, each dispatch's host / device
-   split) is printed.
+   split) is printed;
+13. the last modules of the JAX package: tok (after train): `python -m
+   rust_local_rag_tpu_torch.training.tok` on .cache/train_corpus.txt,
+   two runs at once, whose piece set must be the committed
+   tokenizer.json's (symmetric difference 0), whose files must be byte
+   for byte the same, and whose file must load in the port's WordPiece
+   tokenizers with "yes" and "no" one piece each and both tokenizers
+   giving the same ids on 2,000 corpus lines (seconds, sizes and the
+   difference printed); tui (inside entry_point, against its `python -m`
+   server): the terminal client's Controller and ApiClient headless: the
+   typed query's debounced search equal to /search's answer to the same
+   body (1e-6), stats and health, a reindex from the Controller pushed to
+   `completed` over watch_jobs, one frame of each mode drawn onto a
+   recording screen, then `python -m rust_local_rag_tpu_torch.tui` in a
+   pseudo-terminal (drawn, the query's first result shown, Esc exits 0),
+   with no kernel launch in this process; eval_cli (inside quality, while
+   its server serves): `python -m rust_local_rag_tpu_torch.evaluation.run`
+   list-configs, check (exit 0, ready, 168 queries) and evaluate with
+   bm25_only.yaml, whose summary must equal the quality phase's; and in
+   bench_server, scripts/bench_server.py's engine lines (the object lane
+   at 128 and 512 queries, the MMR hot lane pipelined at 64 and 512, the
+   object lane with the judge at 128), each with the masked kernel's
+   launches, which must be above 0 in each.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -258,10 +284,13 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import http.client
 import json
 import logging
 import os
+import pty
+import select
 import shutil
 import signal
 import socket
@@ -2593,9 +2622,10 @@ def timed_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chunks: int) -> dict:
+def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chunks: int, during=None) -> dict:
     """`python -m rust_local_rag_tpu_torch` on its own copy of the index:
-    ready, one hot-lane answer equal to the in-process server's, then
+    ready, one hot-lane answer equal to the in-process server's,
+    `during(port)` (phase tui) while it serves, then
     (ROADMAP C8) the saved index on disk is cut back to its first
     DISK_BEHIND chunks while the server runs, so the server's whole index
     is a state no save covers; SIGTERM must run the graceful flush, whose
@@ -2623,6 +2653,8 @@ def entry_point_check(data_dir: str, ref_port: int, tmp: str, query: str, n_chun
             same_topk([key(r) for r in a[2]["results"]], [key(r) for r in b[2]["results"]], SERVER_TOL,
                       "entry point vs in-process server")
             capture = entry_capture(port, profile_port, query, os.path.join(tmp, "entry_traces"))
+            if during is not None:
+                during(port)
             full = persistence.load_index(data_dir, get_embedding_model()).state
             behind = persistence.IndexState(model=full.model, embeddings=full.embeddings[:DISK_BEHIND],
                                             metas=full.metas[:DISK_BEHIND], document_hashes=full.document_hashes)
@@ -2734,8 +2766,14 @@ def run_server(engine, card: str, seconds: dict, tmp: str, pdfs: dict, rng, prob
             out["start"] = start
 
         with phase("entry_point", card, seconds):
+            n_chunks = len(ctx.engine.store)
+
+            def during(port: int) -> None:
+                with phase("tui", card, seconds):
+                    out["tui"] = tui_check(port, card, tmp, queries_for(rng, 1, probs)[0], n_chunks)
+
             ep = entry_point_check(data_copy("entry_data"), server.port, tmp, queries_for(rng, 1, probs)[0],
-                                   len(ctx.engine.store))
+                                   n_chunks, during)
             log({**ep, "card": card})
             out["entry_point"] = ep
 
@@ -3263,15 +3301,22 @@ def run_trace(engine, batcher, card: str, tmp: str, rng, probs, capture: dict) -
     return out
 
 
-def run_quality(card: str, tmp: str) -> dict:
+def run_quality(card: str, tmp: str, seconds: dict) -> dict:
     """evaluation.quality --heldout against the port's server on the card,
     default configuration: each config's summary and the queries whose
-    hit_rate or mrr differ from the JAX package's round-5 report."""
+    hit_rate or mrr differ from the JAX package's round-5 report; then,
+    while that server still serves, phase eval_cli (eval_cli_check)."""
     from rust_local_rag_tpu_torch.evaluation import quality
 
     if os.environ.get("RAG_TPU_FUSED_ATTN"):
         raise AssertionError("quality: RAG_TPU_FUSED_ATTN is set; the reports ran without it")
-    res = quality.run_quality(os.path.join(tmp, "quality_reports"), heldout=True, device="cuda", log=log)
+
+    def after(base: str, gt: str, results: dict) -> None:
+        with phase("eval_cli", card, seconds):
+            eval_cli_check(base, gt, results, tmp, card)
+
+    res = quality.run_quality(os.path.join(tmp, "quality_reports"), heldout=True, device="cuda", log=log,
+                              after=after)
     want = {"baseline": 153, "embedding_only": 153, "bm25_only": 153, "baseline_heldout": 157}
     for name, n in want.items():
         summ = res["configs"][name]["summary"]
@@ -3312,15 +3357,299 @@ def run_bench_server(card: str) -> tuple:
 
     score_segmax.launches = fused_attention.launches = 0
     res = bench_server.measure_server_qps(n_chunks=BENCH_SERVER_N, clients=BENCH_SERVER_CLIENTS,
-                                          seconds=BENCH_SERVER_SECONDS, device="cuda", pipelined=(128,), quiet=True)
+                                          seconds=BENCH_SERVER_SECONDS, device="cuda", pipelined=(128, 512),
+                                          quiet=True)
     launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
     for lane in [*res["client_sweep"].values(), res["judged_http"]]:
         if lane["non_200"] or lane["requests"] <= 0:
             raise AssertionError(f"bench_server lane {lane}")
     if launches["score_segmax_masked"] <= 0:
         raise AssertionError(f"bench_server launched {launches}")
+    # scripts/bench_server.py's engine lines: the masked kernel in each
+    lines = {k: (res[k], res["engine_launches"][k]) for k in BENCH_SERVER_ENGINE_LINES}
+    log({"bench_server_engine_lines": {k: {"qps": q, "launches": n} for k, (q, n) in lines.items()},
+         "slab_rows": res["slab_rows"], "corpus_dtype": res["corpus_dtype"], "card": card})
+    bad = {k: n for k, (q, n) in lines.items() if not (q > 0 and n["score_segmax_masked"] > 0)}
+    if bad:
+        raise AssertionError(f"bench_server engine lines without a masked-kernel launch: {bad}")
     print(json.dumps({"bench_server": res, "launches": launches, "card": card}), flush=True)
     return res, launches
+
+
+# ------------------------------------------------------- last modules ----
+
+BENCH_SERVER_ENGINE_LINES = ("engine_batch128_top100_qps", "engine_batch512_top100_qps",
+                             "engine_mmr_pipelined64_top5_qps", "engine_mmr_pipelined512_top5_qps",
+                             "engine_rerank_on_top5_qps")
+TUI_TERMS = ("xterm-256color", "xterm", "vt100", "linux")
+
+
+def run_tok(card: str, tmp: str) -> dict:
+    """phase tok: `python -m rust_local_rag_tpu_torch.training.tok` on the
+    committed tokenizer's corpus, twice at once: the piece set must be the
+    committed tokenizer.json's, the two files byte-identical, and the file
+    must load in the port's tokenizers with "yes" and "no" single pieces
+    and both tokenizers giving the same ids."""
+    corpus = os.path.join(ROOT, TRAIN_CORPUS)  # the committed tokenizer's corpus too
+    if not os.path.exists(corpus):
+        raise AssertionError(f"tok: {TRAIN_CORPUS} is missing")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    outs = [os.path.join(tmp, f"tokenizer_{i}.json") for i in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "rust_local_rag_tpu_torch.training.tok", "--corpus", corpus,
+                               "--out", out], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for out in outs]
+    texts = []
+    for proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        texts.append(text)
+        if proc.returncode != 0:
+            raise AssertionError(f"tok exited {proc.returncode}: {text[-2000:]}")
+    train_s = time.perf_counter() - t0
+
+    def pieces(path):
+        with open(path, encoding="utf-8") as f:
+            d = json.load(f)
+        return set(d["model"]["vocab"]) | {t["content"] for t in d["added_tokens"]}, d
+
+    got, spec = pieces(outs[0])
+    want, _ = pieces(default_asset("tokenizer.json"))
+    with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+        identical = a.read() == b.read()
+    py, native = WordPieceTokenizer(outs[0]), NativeWordPieceTokenizer(outs[0])
+    single = {w: py.tokenize_full(w)[1:-1] for w in ("yes", "no")}
+    with open(corpus, encoding="utf-8") as f:
+        lines = [ln.strip() for _, ln in zip(range(2000), f)]
+    same_ids = all(py.tokenize_full(t) == native.tokenize_full(t) for t in lines)
+    out = {"tok": "python -m rust_local_rag_tpu_torch.training.tok", "corpus": TRAIN_CORPUS,
+           "paragraphs": int(texts[0].split(" on ")[1].split()[0]), "train_s_two_at_once": train_s,
+           "pieces": len(got), "committed_pieces": len(want), "symmetric_difference": len(got ^ want),
+           "added_tokens": [t for t in spec["added_tokens"] if not t["special"]], "byte_identical": identical,
+           "file_bytes": os.path.getsize(outs[0]), "yes_no_ids": single, "native_equals_python_on": len(lines),
+           "card": card}
+    log(out)
+    if got != want or not identical or not all(len(v) == 1 for v in single.values()) or not same_ids:
+        raise AssertionError(f"tok: {out}")
+    return out
+
+
+class RecordingScreen:
+    """curses' stdscr surface as tui.ui.draw uses it, every call recorded."""
+
+    def __init__(self, h: int = 30, w: int = 100):
+        self.h, self.w, self.calls = h, w, []
+
+    def getmaxyx(self):
+        return self.h, self.w
+
+    def __getattr__(self, name):
+        return lambda *a: self.calls.append((name, *a))
+
+
+def pump(ctl, state, done, timeout: float = 120.0) -> float:
+    """Tick the TUI's Controller and apply its messages, as tui.main.run's
+    loop does, until done() holds; -> seconds."""
+    t0 = time.perf_counter()
+    while not done():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"tui: the controller did not finish in {timeout} s ({state.status_line!r})")
+        ctl.tick()
+        while not ctl.msgs.empty():
+            state.update(ctl.msgs.get_nowait())
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def has_terminfo(term: str) -> bool:
+    return subprocess.run([sys.executable, "-c", "import curses, sys; curses.setupterm(sys.argv[1], 1)", term],
+                          capture_output=True, timeout=60).returncode == 0
+
+
+def read_until(fd: int, needle: bytes, timeout: float) -> bytes:
+    out = b""
+    deadline = time.monotonic() + timeout
+    while needle not in out and time.monotonic() < deadline:
+        if select.select([fd], [], [], 0.2)[0]:
+            try:
+                out += os.read(fd, 65536)
+            except OSError:
+                break
+    return out
+
+
+def tui_terminal(url: str, tmp: str, query: str, doc: str) -> dict:
+    """`python -m rust_local_rag_tpu_torch.tui` in a pseudo-terminal: the
+    header draws, the typed query's first result shows, Esc quits with 0."""
+    term = next((t for t in TUI_TERMS if has_terminfo(t)), None)
+    if term is None:
+        raise AssertionError(f"tui: no terminfo entry for any of {TUI_TERMS}")
+    master, slave = pty.openpty()
+    env = dict(os.environ, TERM=term, LINES="30", COLUMNS="100", RAG_TUI_SERVER_URL=url,
+               RAG_TUI_ENV_PATH=os.path.join(tmp, "tui_terminal.env"),
+               PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "rust_local_rag_tpu_torch.tui"], stdin=slave, stdout=slave,
+                            stderr=slave, env=env, cwd=tmp, close_fds=True)
+    os.close(slave)
+    screen, code = b"", None
+    try:
+        screen += read_until(master, b"rag-tui", 60)
+        drawn_s = time.perf_counter() - t0
+        os.write(master, query.encode())
+        screen += read_until(master, doc.encode(), 120)
+        found_s = time.perf_counter() - t0
+        os.write(master, b"\x1b")
+        code = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        os.close(master)
+    out = {"term": term, "drawn_s": drawn_s, "result_shown_s": found_s, "exit_code": code,
+           "screen_bytes": len(screen)}
+    if b"rag-tui" not in screen or doc.encode() not in screen or code != 0:
+        raise AssertionError(f"tui terminal: {out}; screen tail {screen[-800:]!r}")
+    return out
+
+
+def tui_frames(tui_app, tui_ui, tui_theme, state, settings) -> list:
+    """One frame of every mode on a recording screen: -> [(mode, calls)]."""
+    Msg = tui_app.Msg
+    frames = []
+
+    def draw(mode):
+        scr = RecordingScreen()
+        tui_ui.draw(scr, state, settings, tui_theme.get_theme(state.theme_name))
+        frames.append((mode, scr.calls))
+
+    draw("normal")
+    state.update(Msg("enter_detail"))
+    draw("detail")
+    state.update(Msg("back"))
+    state.update(Msg("help"))
+    draw("help")
+    state.update(Msg("settings"))
+    draw("settings")
+    state.settings_editing, state.settings_edit_buffer, state.settings_cursor = True, "0.5", 1
+    draw("settings_editing")
+    state.settings_editing = False
+    state.update(Msg("back"))
+    return frames
+
+
+def tui_check(port: int, card: str, tmp: str, query: str, n_chunks: int) -> dict:
+    """phase tui: the port's terminal client against the entry point's
+    server (`python -m rust_local_rag_tpu_torch` on the card). Headless,
+    the Controller types `query` and its debounced search must equal
+    /search's answer to the same body; stats and health answer; a reindex
+    started from the Controller is pushed over watch_jobs to `completed`;
+    ui.draw renders one frame of each mode onto a recording screen; then
+    `python -m rust_local_rag_tpu_torch.tui` in a pseudo-terminal. The
+    TUI runs no model: no kernel launch in this process."""
+    from rust_local_rag_tpu_torch.tui import api as tui_api
+    from rust_local_rag_tpu_torch.tui import app as tui_app
+    from rust_local_rag_tpu_torch.tui import main as tui_main
+    from rust_local_rag_tpu_torch.tui import settings as tui_settings
+    from rust_local_rag_tpu_torch.tui import theme as tui_theme
+    from rust_local_rag_tpu_torch.tui import ui as tui_ui
+
+    counters = (fused_attention, score_segmax, fused_score_segmax)
+    before = [c.launches for c in counters]
+    url = f"http://127.0.0.1:{port}"
+    client = tui_api.ApiClient(url)
+    stats = client.stats()
+    if not client.health() or stats.chunks != n_chunks:
+        raise AssertionError(f"tui: health {client.health()}, stats {stats} (want {n_chunks} chunks)")
+    events, stop = [], threading.Event()
+    threading.Thread(target=client.watch_jobs, args=(events.append, stop.is_set), daemon=True).start()
+    state = tui_app.AppState()
+    settings = tui_settings.Settings.load(os.path.join(tmp, "tui.env"))
+    ctl = tui_main.Controller(tui_api.ApiClient(url), state, settings)
+    try:
+        for ch in query:
+            state.update(tui_app.Msg("char", ch))
+            ctl.schedule_search()
+        search_s = pump(ctl, state, lambda: bool(state.results) and not state.searching and state.stats is not None)
+        status, _, body = Http(port).call("POST", "/search", {"query": query, "top_k": 10, "diversity_factor": 0.3})
+        want = [tui_api.TuiSearchResult.from_json(r) for r in body["results"]]
+        if status != 200 or [r.chunk_id for r in state.results] != [r.chunk_id for r in want]:
+            raise AssertionError(f"tui: the search differs from /search ({status})")
+        worst = max(abs(a.score - b.score) for a, b in zip(state.results, want))
+        if worst > SERVER_TOL:
+            raise AssertionError(f"tui: scores differ from /search's by {worst}")
+        frames = tui_frames(tui_app, tui_ui, tui_theme, state, settings)
+        # a new session may first be told of the last job: wait for another
+        old = state.job.job_id if state.job is not None else None
+        ctl.start_reindex()
+        reindex_s = pump(ctl, state, lambda: state.job is not None and state.job.job_id != old
+                         and state.job.status == "completed")
+        job_id = state.job.job_id
+        t0 = time.perf_counter()
+        while not any(e.job_id == job_id and e.status == "completed" for e in events):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"tui: no completion of {job_id} pushed over watch_jobs ({events})")
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        ctl.stop()
+    terminal = tui_terminal(url, tmp, query, want[0].document)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    texts = {mode: " ".join(str(c[3]) for c in calls if c[0] == "addnstr") for mode, calls in frames}
+    out = {"tui": "Controller + ApiClient against the entry point", "results": len(state.results),
+           "search_s": search_s, "max_score_diff": worst, "stats": vars(stats), "reindex_s": reindex_s,
+           "pushed": [[e.status, e.progress, e.total] for e in events if e.job_id == job_id],
+           "status_line": state.status_line, "frames": {m: len(c) for m, c in frames}, "terminal": terminal,
+           "launches_in_process": dict(zip(("fused_attention", "score_segmax_masked", "fused_score_segmax"),
+                                           launches)), "card": card}
+    log(out)
+    if any(launches) or state.status_line != "reindex completed" or not all(
+            ("rag-tui" in t) for t in texts.values()) or want[0].document not in texts["normal"]:
+        raise AssertionError(f"tui: {out}")
+    return out
+
+
+def eval_cli_check(base: str, gt: str, results: dict, tmp: str, card: str) -> dict:
+    """phase eval_cli: `python -m rust_local_rag_tpu_torch.evaluation.run`
+    list-configs, check and evaluate (bm25_only) against the quality
+    phase's server: list-configs names every config, check exits 0 with
+    the server ready and the ground truth's counts, and evaluate's report
+    equals the quality phase's bm25_only report of the same server."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    cfg = os.path.join(tmp, "eval_cli.yaml")
+    with open(cfg, "w") as f:
+        f.write(f'name: "eval_cli"\nrag_endpoint: "{base}"\nground_truth_path: "{gt}"\n')
+    out_dir = os.path.join(tmp, "eval_cli_reports")
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "rust_local_rag_tpu_torch.evaluation.run", *argv], cwd=ROOT,
+                           env=env, capture_output=True, text=True, timeout=600)
+        return p.returncode, p.stdout, time.perf_counter() - t0
+
+    listed = cli("list-configs")
+    checked = cli("check", "--config", cfg)
+    evaluated = cli("evaluate", "--config", os.path.join(ROOT, "eval_harness", "configs", "bm25_only.yaml"),
+                    "--endpoint", base, "--ground-truth", gt, "--out", out_dir)
+    reports = [p for p in os.listdir(out_dir) if p.endswith(".json")] if os.path.isdir(out_dir) else []
+    summary = {}
+    if len(reports) == 1:
+        with open(os.path.join(out_dir, reports[0])) as f:
+            summary = json.load(f)["summary"]
+    want = results["bm25_only"]["summary"]
+    same = all(summary.get(k) == want[k] for k in ("n_queries", "hit_rate_mean", "mrr_mean", "passed"))
+    out = {"eval_cli": "python -m rust_local_rag_tpu_torch.evaluation.run",
+           "list_configs": [listed[0], len(listed[1].splitlines()), listed[2]],
+           "check": [checked[0], checked[1].splitlines()[:1] + checked[1].splitlines()[-1:], checked[2]],
+           "evaluate_bm25_only": [evaluated[0], {k: summary.get(k) for k in ("n_queries", "hit_rate_mean",
+                                                                            "mrr_mean", "passed")}, evaluated[2]],
+           "equals_quality_phase": same, "card": card}
+    log(out)
+    n_cfg = len([p for p in os.listdir(os.path.join(ROOT, "eval_harness", "configs")) if p.endswith(".yaml")])
+    if (listed[0] != 0 or len(listed[1].splitlines()) != n_cfg or checked[0] != 0
+            or not checked[1].startswith("server ready: True") or "ground truth: 168 queries" not in checked[1]
+            or evaluated[0] != (0 if want["passed"] else 1) or not same):
+        raise AssertionError(f"eval_cli: {out}")
+    return out
 
 
 # ----------------------------------------------------------------- main ----
@@ -3552,8 +3881,11 @@ def experiments_times(seed: int, dev, card: str) -> dict:
         lambda: stream_segmax_plain(qs, corpus, 128, "qn"),
         lambda: exp_common.gemm_scores(qs, corpus).view(q, n // 128, 128).amax(dim=2),
         exp_bound(slab + q * d * 2 + q * n * 4 + (n // 128) * q * 4, 2 * q * n * d))
+    # the same function as stream_segmax, with no scores written: its
+    # library call is stream_segmax's (the GEMM writes its scores anyway)
     row("stream_segmax_none", "no scores (isolate both), seg 128, slots 2",
-        lambda: stream_segmax(qs, corpus, 128, "none"), lambda: stream_segmax_plain(qs, corpus, 128, "none"), None,
+        lambda: stream_segmax(qs, corpus, 128, "none"), lambda: stream_segmax_plain(qs, corpus, 128, "none"),
+        lambda: exp_common.gemm_scores(qs, corpus).view(q, n // 128, 128).amax(dim=2),
         exp_bound(slab + q * d * 2 + (n // 128) * q * 4, 2 * q * n * d))
     row("read_probe", "blk 8192, slots 2, static", lambda: read_probe(corpus, 8192, 128, 2, True),
         lambda: read_probe_plain(corpus, 8192, 128), None, exp_bound(slab + (n // 8192) * (128 * 4 + 8)))
@@ -3965,6 +4297,13 @@ TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_COS = 0.999
 TRAIN_PARAM_COS = 0.99
 F16_REL = 2.0 ** -11  # round to nearest f16: half an ulp, relative
+# train_sharded: the (2, 2) step of a seeded encoder against its (1, 1)
+# step, both on the card (the same arithmetic in another grouping): loss
+# within 5e-3, global gradient cosine >= 0.9995, and each parameter's
+# gradient cosine >= TRAIN_PARAM_COS
+SHARDED_VOCAB = 8192
+SHARDED_LOSS_TOL = 5e-3
+SHARDED_GRAD_COS = 0.9995
 
 
 def grad_agreement(got: dict, want: dict) -> dict:
@@ -4046,6 +4385,41 @@ def check_f16_reload(delta: float, state: dict, what: str) -> float:
     return F16_REL * top
 
 
+def train_sharded(enc_cpu, batch, loss_dev: float, grads_dev: dict, unk: int, seed: int, dev, card: str) -> dict:
+    """train_sharded: the committed checkpoint's step on a (1, 1) mesh, as
+    the trainer runs it, against the plain module's (loss_dev, grads_dev);
+    then a seeded encoder at the committed widths with a vocabulary of
+    SHARDED_VOCAB rows (8,193 does not divide over a model axis of 2: the
+    port refuses it as JAX does) on a (2, 2) mesh standing on the card
+    against its (1, 1) mesh."""
+    mesh = build_mesh((1, 1), ("data", "model"), devices=[dev])
+    params = shard_params(copy.deepcopy(enc_cpu), mesh)
+    loss_11, grads_11 = encoder_step(params, place_batch(batch, mesh), dev)
+    del params
+    check_grads("(1, 1) step against the plain module", loss_11, loss_dev, grad_agreement(grads_11, grads_dev))
+    del grads_11
+    seeded = Encoder(dataclasses.replace(enc_cpu.cfg, vocab_size=SHARDED_VOCAB), torch.Generator().manual_seed(seed))
+    # ids past the seeded vocabulary ("yes" at 8,192) become [UNK]; masks are 0/1
+    seeded_batch = [np.where(x >= SHARDED_VOCAB, unk, x).astype(x.dtype) for x in batch]
+    steps = {}
+    for shape in ((1, 1), (2, 2)):
+        mesh = build_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
+        params = shard_params(copy.deepcopy(seeded), mesh)
+        steps[shape] = encoder_step(params, place_batch(seeded_batch, mesh), dev)
+        del params
+    agree = grad_agreement(steps[(2, 2)][1], steps[(1, 1)][1])
+    log({"train_sharded": "(2, 2) on one card against (1, 1)", "stand_in": "4 mesh positions on 1 card",
+         "model": f"seeded {seeded.cfg.depth} x {seeded.cfg.dim}, vocab {SHARDED_VOCAB}",
+         "unk_ids": int(sum((x >= SHARDED_VOCAB).sum() for x in batch[0::2])), "loss": steps[(2, 2)][0],
+         "loss_1x1": steps[(1, 1)][0], "committed_loss_1x1": loss_11, "encoder_loss": loss_dev, **agree,
+         "loss_tol": SHARDED_LOSS_TOL, "grad_cos_min": SHARDED_GRAD_COS, "param_cos_min": TRAIN_PARAM_COS,
+         "card": card})
+    if not (np.isfinite(steps[(2, 2)][0]) and abs(steps[(2, 2)][0] - steps[(1, 1)][0]) <= SHARDED_LOSS_TOL
+            and agree["global_cos"] >= SHARDED_GRAD_COS and agree["worst_param_cos"] >= TRAIN_PARAM_COS):
+        raise AssertionError(f"sharded step: loss {steps[(2, 2)][0]} against {steps[(1, 1)][0]}, {agree}")
+    return {"loss": steps[(2, 2)][0], "loss_1x1": steps[(1, 1)][0], "committed_loss_1x1": loss_11, **agree}
+
+
 def run_train(seed: int, dev, card: str, tmp: str) -> dict:
     """The training slice at the committed assets' widths (phase train)."""
     log({"train_cuts": TRAIN_CUTS, "card": card})
@@ -4115,22 +4489,8 @@ def run_train(seed: int, dev, card: str, tmp: str) -> dict:
     out["reranker_step"] = {"loss": found["card"][0], "cpu_loss": found["cpu"][0], **agree}
     del rr_dev, rr_cpu, found
 
-    # train_sharded: the encoder step on a (2, 2) mesh standing on the card
-    # against the (1, 1) mesh's
-    steps = {}
-    for shape in ((1, 1), (2, 2)):
-        mesh = build_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
-        params = shard_params(copy.deepcopy(enc_cpu), mesh)
-        steps[shape] = encoder_step(params, place_batch(batch, mesh), dev)
-        del params
-    agree = grad_agreement(steps[(2, 2)][1], steps[(1, 1)][1])
-    log({"train_sharded": "(2, 2) on one card against (1, 1)", "stand_in": "4 mesh positions on 1 card",
-         "loss": steps[(2, 2)][0], "loss_1x1": steps[(1, 1)][0], "encoder_loss": loss_dev, **agree, "card": card})
-    check_grads("sharded step", steps[(2, 2)][0], steps[(1, 1)][0], agree)
-    check_grads("(1, 1) step against the plain module", steps[(1, 1)][0], loss_dev,
-                grad_agreement(steps[(1, 1)][1], grads_dev))
-    out["sharded"] = {"loss": steps[(2, 2)][0], "loss_1x1": steps[(1, 1)][0], **agree}
-    del steps, enc_dev, grads_dev, grads_cpu
+    out["sharded"] = train_sharded(enc_cpu, batch, loss_dev, grads_dev, tok.token_to_id("[UNK]"), seed, dev, card)
+    del enc_dev, grads_dev, grads_cpu
     torch.cuda.empty_cache()
 
     # the trainers themselves, as a user runs them, with the attention
@@ -4373,7 +4733,7 @@ def main(argv=None) -> int:
         with phase("pdf_tiers", card, seconds):
             run_pdf_tiers(card, result["pdfs"], built)
         with phase("quality", card, seconds):
-            run_quality(card, late)
+            run_quality(card, late, seconds)
         with phase("bench", card, seconds):
             _, bench_launches = run_bench(card)
         with phase("bench_server", card, seconds):
@@ -4384,6 +4744,8 @@ def main(argv=None) -> int:
     try:
         with phase("train", card, seconds):
             run_train(args.seed, dev, card, train_tmp)
+        with phase("tok", card, seconds):
+            run_tok(card, train_tmp)
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
     log({"phase_seconds": seconds, "card": card})

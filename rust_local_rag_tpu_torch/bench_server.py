@@ -1,6 +1,7 @@
 """Server-level QPS over loopback HTTP (port of scripts/bench_server.py).
 
     python -m rust_local_rag_tpu_torch.bench_server [--n 1245184] [--seconds 15] [--device cuda]
+        [--pipelined 128 512]
 
 The engine is built as the JAX bench builds it: Zipf texts (8 content
 terms from a 30k vocabulary and a unique id term) indexed in the native
@@ -12,24 +13,39 @@ on a thread of this process. The load generator is a raw-socket
 keep-alive client in a subprocess pinned to cores of its own (the server
 keeps the others), closed loop, each connection one request at a time.
 
-Lanes, each printed with its QPS and latency percentiles:
+Lanes, in the order they run, each printed with its QPS and latency
+percentiles:
 
-  * hot (rerank off, diversity 0, top_k 100) over HTTP at each client
-    count of the sweep; the best point is the headline;
   * the engine-pipelined ceiling: dispatch batch N+1 before fetching
     batch N, then serialize (no HTTP, no batcher) at 128 and 512 queries
-    (--pipelined);
+    (--pipelined): engine_pipelined{N}_top{k}_qps;
+  * hot (rerank off, diversity 0, top_k 100) over HTTP at each client
+    count of the sweep; the best point is the headline;
   * the judged quality body (eval_harness/configs/baseline.yaml's judge
-    gate, top_k 5, diversity 0) over HTTP, and its engine-pipelined
-    ceiling at the first --pipelined size.
+    gate, top_k 5, diversity 0): its engine-pipelined ceiling at the
+    first --pipelined size, then over HTTP;
+  * after every HTTP lane, so that those run as they ran before these
+    lines existed: the object lane in process (search_batch, rerank off,
+    no HTTP, no batcher) at each --pipelined size:
+    engine_batch{N}_top{k}_qps; the MMR hot lane pipelined as above
+    (dispatch_search_mmr at diversity 0.3, fetch_columnar,
+    serialize_batch; top_k 5) at MMR_PIPELINED's 64 and 512 queries:
+    engine_mmr_pipelined{N}_top5_qps; and the object lane with the judge
+    (search_batch, top_k 5, reranker weight 0, threshold 0.06) at the
+    first --pipelined size: engine_rerank_on_top5_qps.
+
+The in-process lines are computed as scripts/bench_server.py computes
+them: one warm call, then reps x queries over the wall time of the reps
+(3 reps for the object lanes, 6 for the pipelined ones). Each one's
+launches of the masked score + segment-max kernel and of the attention
+kernel, its warm call included, are under "engine_launches".
 
 Each HTTP lane also reports where a request's time goes on the server,
 per request: parse (the protocol's data_received, which parses the
 request and submits it to the batcher), wait (submit until the batcher
 starts the batch), search (the batch's execution: encoder, BM25, first
 stage, fetch, judge, serialization) and write (the response handed to the
-socket on the event loop). JAX's object-lane and MMR engine lines are not
-ported. Prints one JSON line.
+socket on the event loop). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -49,6 +65,12 @@ import numpy as np
 
 VOCAB = 30_000
 QUERY_MIN_RANK = 64
+MMR_DIVERSITY = 0.3
+MMR_PIPELINED = (64, 512)  # scripts/bench_server.py's MMR batch sizes
+# scripts/bench_server.py's rerank-on line: the judge gate of the shipped
+# quality config, top_k 5
+RERANK_ON_WEIGHTS = {"reranker": 0.0, "initial": 1.0}
+RERANK_ON_THRESHOLD = 0.06
 # eval_harness/configs/baseline.yaml's search_params, diversity 0: the judged lane
 JUDGED_BODY = {"diversity_factor": 0.0, "use_reranker": True, "rejection_threshold": 0.0,
                "rejection_unseen_mass": 0.35, "rejection_unseen_cos": 0.6, "rejection_unseen_judge": 0.2,
@@ -266,9 +288,10 @@ def http_lane(port: int, conns: int, seconds: float, top_k: int, extra: dict, ba
             "latency_p50_ms": pct(lats, 0.5), "latency_p99_ms": pct(lats, 0.99), "server_split": split}
 
 
-def pipelined_qps(eng, queries: List[str], top_k: int, reps: int = 6, judged: bool = False) -> float:
+def pipelined_qps(eng, queries: List[str], top_k: int, reps: int = 6, judged: bool = False,
+                  mmr: bool = False) -> float:
     """Queries a second through the engine with batch i+1 dispatched before
-    batch i is fetched (and, for the hot lane, serialized)."""
+    batch i is fetched (and, for the hot and MMR lanes, serialized)."""
     from rust_local_rag_tpu_torch.config import QueryWeights
     from rust_local_rag_tpu_torch.server.serializer import ResponseSerializer
 
@@ -287,6 +310,8 @@ def pipelined_qps(eng, queries: List[str], top_k: int, reps: int = 6, judged: bo
         finish = eng.fetch_judged
     else:
         def start():
+            if mmr:
+                return eng.dispatch_search_mmr(queries, top_k, MMR_DIVERSITY)
             return eng.dispatch_search(queries, top_k)
 
         def finish(pend):
@@ -304,6 +329,46 @@ def pipelined_qps(eng, queries: List[str], top_k: int, reps: int = 6, judged: bo
     return reps * qb / (time.perf_counter() - t0)
 
 
+def object_qps(eng, queries: List[str], top_k: int, reps: int = 3, rerank: bool = False) -> float:
+    """Queries a second through the object lane (search_batch) after one
+    warm call: rerank off, or the judge under RERANK_ON_WEIGHTS."""
+    from rust_local_rag_tpu_torch.config import QueryWeights
+
+    if rerank:
+        def call():
+            return eng.search_batch(queries, top_k, QueryWeights(**RERANK_ON_WEIGHTS), use_reranker=True,
+                                    rejection_threshold=RERANK_ON_THRESHOLD)
+    else:
+        def call():
+            return eng.search_batch(queries, top_k, use_reranker=False)
+    call()  # warm
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    return reps * len(queries) / (time.perf_counter() - t0)
+
+
+class LaunchCounts:
+    """Launches of the masked score + segment-max kernel and of the
+    attention kernel over each engine line (the wrappers' counters, read
+    before and after, never reset)."""
+
+    def __init__(self):
+        from rust_local_rag_tpu_torch.ops.attention import fused_attention
+        from rust_local_rag_tpu_torch.ops.score_segmax import score_segmax
+
+        self._counters = {"score_segmax_masked": score_segmax, "fused_attention": fused_attention}
+        self.lines: dict = {}
+
+    @contextlib.contextmanager
+    def line(self, key: str):
+        before = {k: c.launches for k, c in self._counters.items()}
+        try:
+            yield
+        finally:
+            self.lines[key] = {k: c.launches - before[k] for k, c in self._counters.items()}
+
+
 @contextlib.contextmanager
 def _env(**kw):
     old = {k: os.environ.get(k) for k in kw}
@@ -319,7 +384,8 @@ def _env(**kw):
 
 
 def measure_server_qps(n_chunks: int = 1_245_184, top_k: int = 100, clients=(64, 256), seconds: float = 15.0,
-                       device: str = "cuda", with_rerank_lane: bool = True, max_batch: int = 512, window_ms: float = 5.0, pipelined=(128, 512), quiet: bool = False) -> dict:
+                       device: str = "cuda", with_rerank_lane: bool = True, max_batch: int = 512, window_ms: float = 5.0,
+                       pipelined=(128, 512), quiet: bool = False) -> dict:
     import torch
 
     from rust_local_rag_tpu_torch.device import resolve_device
@@ -356,7 +422,7 @@ def measure_server_qps(n_chunks: int = 1_245_184, top_k: int = 100, clients=(64,
                 raise RuntimeError("the server did not start")
             t0 = time.monotonic()
             eng.warmup()
-            queries = zipf_queries(max(max_batch, *pipelined))
+            queries = zipf_queries(max(max_batch, *pipelined, *MMR_PIPELINED))
             b = 1
             while b <= max_batch:  # every batch the coalescer can form, both lanes
                 eng.fetch_columnar(eng.dispatch_search(queries[:b], top_k))
@@ -378,8 +444,11 @@ def measure_server_qps(n_chunks: int = 1_245_184, top_k: int = 100, clients=(64,
                 "server_cores": len(server_cores), "client_cores": len(client_cores), "build_s": build_s,
                 "batch_max": max_batch, "batch_window_ms": window_ms, "lexical_content_us_per_query": lex_us,
             }
+            counts = LaunchCounts()
             for qb in pipelined:
-                result[f"engine_pipelined{qb}_top{top_k}_qps"] = pipelined_qps(eng, queries[:qb], top_k)
+                key = f"engine_pipelined{qb}_top{top_k}_qps"
+                with counts.line(key):
+                    result[key] = pipelined_qps(eng, queries[:qb], top_k)
             sweep = {}
             for cl in clients:
                 sweep[f"clients{cl}"] = http_lane(server.port, cl, seconds, top_k, {"diversity_factor": 0.0,
@@ -390,13 +459,29 @@ def measure_server_qps(n_chunks: int = 1_245_184, top_k: int = 100, clients=(64,
                            "latency_p50_ms": best["latency_p50_ms"], "latency_p99_ms": best["latency_p99_ms"],
                            "client_sweep": sweep})
             if with_rerank_lane:
-                qb = pipelined[0]
-                result[f"engine_judged_pipelined{qb}_top5_qps"] = pipelined_qps(eng, queries[:qb], 5, judged=True)
+                key = f"engine_judged_pipelined{pipelined[0]}_top5_qps"
+                with counts.line(key):
+                    result[key] = pipelined_qps(eng, queries[:pipelined[0]], 5, judged=True)
                 judged = http_lane(server.port, max(clients), max(seconds / 2, 2.0), 5, JUDGED_BODY, ctx.batcher,
                                    client_cores)
                 result["judged_http"] = judged
                 result["server_e2e_judged_top5_qps"] = judged["qps"]
                 log(f"judged lane: {judged['qps']:.1f} qps")
+            # the lines that the HTTP lanes did not have before them run last
+            for qb in pipelined:
+                key = f"engine_batch{qb}_top{top_k}_qps"
+                with counts.line(key):
+                    result[key] = object_qps(eng, queries[:qb], top_k)
+            for qb in MMR_PIPELINED:
+                key = f"engine_mmr_pipelined{qb}_top5_qps"
+                with counts.line(key):
+                    result[key] = pipelined_qps(eng, queries[:qb], 5, mmr=True)
+            if with_rerank_lane:
+                key = "engine_rerank_on_top5_qps"
+                with counts.line(key):
+                    result[key] = object_qps(eng, queries[:pipelined[0]], 5, rerank=True)
+            log(f"engine lines: {counts.lines}")
+            result["engine_launches"] = counts.lines
             if ctx.batcher.judged_fallbacks or eng.rerank_fallbacks:
                 raise RuntimeError(f"fallbacks: judged {ctx.batcher.judged_fallbacks}, rerank {eng.rerank_fallbacks}")
             return result
@@ -418,7 +503,8 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--no-rerank-lane", action="store_true")
     ap.add_argument("--batch-max", type=int, default=512)
     ap.add_argument("--pipelined", type=int, nargs="+", default=[128, 512],
-                    help="batch sizes of the engine-pipelined lines (the judged one takes the first)")
+                    help="batch sizes of the object-lane and engine-pipelined lines (the judged and rerank-on "
+                         "ones take the first)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(json.dumps(measure_server_qps(args.n, args.k, tuple(args.clients), args.seconds, args.device,

@@ -2,7 +2,8 @@
 eval_harness/client.py, which uses requests): HTTP mode (POST /search) and
 MCP JSON-RPC mode (tools/call search_documents, results parsed back out of
 the markdown), the same endpoints, bodies, errors and fuzzy gold matching
-as the harness's RAGClient."""
+as the harness's RAGClient. Requests go over utils/http_pool's keep-alive
+connections."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 from urllib.parse import urlsplit
+
+from rust_local_rag_tpu_torch.utils.http_pool import ConnectionPool
 
 
 @dataclass
@@ -45,30 +48,14 @@ class RAGClient:
         if u.scheme != "http" or not u.hostname:
             raise ValueError(f"not an http:// endpoint: {endpoint!r}")
         self._host, self._port, self._path = u.hostname, u.port or 80, u.path
-        self._conn: Optional[http.client.HTTPConnection] = None
+        self._pool = ConnectionPool(max_idle=1)
 
     def _request(self, method: str, path: str, body=None, timeout: Optional[float] = None):
-        """(status, body bytes) on the keep-alive connection, opened again
-        once if the server closed it."""
+        """(status, body bytes) of one request."""
         data = None if body is None else json.dumps(body).encode()
         headers = {"Content-Type": "application/json"} if data is not None else {}
-        for attempt in (0, 1):
-            if self._conn is None:
-                self._conn = http.client.HTTPConnection(self._host, self._port, timeout=timeout or self.timeout)
-            try:
-                self._conn.timeout = timeout or self.timeout
-                if self._conn.sock is not None:
-                    self._conn.sock.settimeout(self._conn.timeout)
-                self._conn.request(method, path, body=data, headers=headers)
-                r = self._conn.getresponse()
-                raw = r.read()
-                if r.getheader("Connection", "").lower() == "close":
-                    self.close()
-                return r.status, raw
-            except (http.client.HTTPException, OSError):
-                self.close()
-                if attempt:
-                    raise
+        a = self._pool.request(self._host, self._port, method, path, data, headers, timeout or self.timeout)
+        return a.status, a.body
 
     def request_json(self, method: str, path: str, body=None, timeout: Optional[float] = None):
         """The parsed JSON answer of one request; raises on a status >= 400."""
@@ -78,9 +65,7 @@ class RAGClient:
         return json.loads(raw)
 
     def close(self) -> None:
-        if self._conn is not None:
-            self._conn.close()
-            self._conn = None
+        self._pool.close()
 
     def search(self, query: str, top_k: int = 5, params: Optional[dict] = None) -> SearchResponse:
         """`params` carries optional per-request search settings (weights,

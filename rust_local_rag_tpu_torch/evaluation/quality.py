@@ -116,9 +116,11 @@ def evaluate(name: str, endpoint: str, ground_truth: str, out_dir: str) -> dict:
 
 
 def run_quality(out_dir: str, heldout: bool = False, thirdparty: bool = False, device: str = "cuda",
-                log=print) -> dict:
+                log=print, after=None) -> dict:
     """The whole evaluation; returns {config: {"lane", "summary",
-    "reference", "jax_summary", "diffs"}} and the server's /stats."""
+    "reference", "jax_summary", "diffs"}} and the server's /stats.
+    `after(base_url, ground_truth, results)`, when given, runs once every
+    config is evaluated, while the server still serves."""
     from eval_harness.corpus import generate_corpus, generate_ground_truth
 
     out_dir = os.path.abspath(out_dir)
@@ -178,6 +180,8 @@ def run_quality(out_dir: str, heldout: bool = False, thirdparty: bool = False, d
                 log(f"+ {len(tp_names)} third-party PDFs, {ntp} queries; reindexing...")
                 stats = reindex(client)
                 results["baseline_thirdparty"] = _one("baseline_thirdparty", base, gt["thirdparty"], out_dir, log)
+            if after is not None:
+                after(base, gt["dev"], results)
             return {"configs": results, "stats": stats, "ready_s": ready_s, "reindex_s": reindex_s}
         finally:
             client.close()

@@ -42,6 +42,21 @@ def _decode(raw: bytes, dtype: str, shape) -> np.ndarray:
     return arr.reshape(shape).astype(np.float32, copy=True)
 
 
+def read_safetensors_header(path: str) -> Tuple[Dict[str, dict], Dict[str, str]]:
+    """-> ({name: {dtype, shape, data_offsets}}, metadata dict), reading the
+    8-byte length and the JSON header only, never the tensor bytes."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: too short for a safetensors file")
+        (n,) = struct.unpack("<Q", head)
+        if n > _HEADER_LIMIT or 8 + n > os.fstat(f.fileno()).st_size:
+            raise ValueError(f"{path}: bad header length {n}")
+        header = json.loads(f.read(n).decode("utf-8"))
+    meta = header.pop("__metadata__", None) or {}
+    return header, meta
+
+
 def read_safetensors(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     """-> ({name: f32 array}, metadata dict)."""
     with open(path, "rb") as f:

@@ -226,9 +226,12 @@ class WordPieceTokenizer:
 
     _CACHE_CAP = 1 << 18
 
-    def __init__(self, path: str, max_len: int = 512):
-        with open(path, "r", encoding="utf-8") as f:
-            spec = json.load(f)
+    def __init__(self, path: str, max_len: int = 512, spec: Optional[dict] = None):
+        """`spec`, when given, is the parsed tokenizer.json (path then only
+        names it in errors)."""
+        if spec is None:
+            with open(path, "r", encoding="utf-8") as f:
+                spec = json.load(f)
         model = spec["model"]
         if model.get("type") != "WordPiece":
             raise ValueError(f"{path}: model type {model.get('type')!r} is not WordPiece")

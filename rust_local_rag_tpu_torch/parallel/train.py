@@ -77,11 +77,12 @@ class ShardedParams:
 
     blocks[name] holds one leaf tensor (requires_grad) a model shard, on
     the device of mesh position (0, shard); a replicated parameter is one
-    leaf on the lead device. A dim that does not divide over the shards is
-    split as torch.tensor_split splits it, the first blocks one row larger
-    (the JAX package refuses such a dim; the committed vocabulary of 8,193
-    needs it on a model axis of 2). A storage-free copy of the encoder
-    module supplies the forward (torch.func.functional_call)."""
+    leaf on the lead device. A sharded dim must divide over the shards:
+    one that does not raises ValueError, as jax.device_put refuses it in
+    the JAX package (the committed vocabulary of 8,193 rows therefore
+    trains on a model axis of 1, as the JAX trainer's (devices, 1) mesh
+    runs it). A storage-free copy of the encoder module supplies the
+    forward (torch.func.functional_call)."""
 
     def __init__(self, model: Encoder, mesh: Mesh, specs: Dict[str, tuple]):
         if tuple(mesh.axis_names) != (DATA, MODEL):
@@ -97,9 +98,10 @@ class ShardedParams:
                 self.blocks[name] = [value.detach().to(mesh.lead, torch.float32).clone().requires_grad_(True)]
                 continue
             dim = spec.index(MODEL)
-            if value.shape[dim] < n_model:
-                raise ValueError(f"{name} {tuple(value.shape)}: dim {dim} is smaller than {n_model} shards")
-            pieces = torch.tensor_split(value.detach(), n_model, dim)
+            if value.shape[dim] % n_model:
+                raise ValueError(f"{name} {tuple(value.shape)}: dim {dim} ({value.shape[dim]}) does not divide "
+                                 f"over {n_model} model shards")
+            pieces = torch.chunk(value.detach(), n_model, dim)
             self.blocks[name] = [
                 p.to(mesh.devices[0, m], torch.float32).contiguous().clone().requires_grad_(True)
                 for m, p in enumerate(pieces)

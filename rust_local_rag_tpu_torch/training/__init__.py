@@ -6,6 +6,6 @@ train_reranker.PromptPairBatcher), dense and junk mining (mining),
 paraphrases (paraphrase) and out-of-domain junk queries (ood).
 
 Both trainers write checkpoints that the port's serving stack and the JAX
-package's loaders read. The WordPiece vocabulary trainer (training/tok.py
-there) is not ported: it is built on the ``tokenizers`` package.
+package's loaders read. The WordPiece vocabulary trainer (tok) is the
+``tokenizers`` package's WordPieceTrainer rebuilt on the standard library.
 """

@@ -91,7 +91,8 @@ def test_zipf_texts_and_queries_are_seeded():
     assert len(set(bench_server.zipf_queries(50))) == 50
 
 
-def test_bench_server_prints_one_json_line(capsys):
+def test_bench_server_prints_one_json_line(capsys, monkeypatch):
+    monkeypatch.setattr(bench_server, "MMR_PIPELINED", (8,))  # 512 queries of MMR would add minutes on the CPU
     assert bench_server.main(["--n", "16384", "--k", "5", "--clients", "2", "4", "--seconds", "1", "--batch-max",
                               "4", "--pipelined", "8", "16", "--device", "cpu"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -106,3 +107,35 @@ def test_bench_server_prints_one_json_line(capsys):
         assert split["search_p50_ms"] > 0 and split["wait_p50_ms"] is not None and split["write_p50_ms"] is not None
     assert res["engine_pipelined8_top5_qps"] > 0 and res["engine_pipelined16_top5_qps"] > 0
     assert res["engine_judged_pipelined8_top5_qps"] > 0
+    # scripts/bench_server.py's object-lane, MMR and rerank-on engine lines,
+    # each with its launches (none on the CPU: the wrappers take the plain path)
+    lines = ["engine_batch8_top5_qps", "engine_batch16_top5_qps", "engine_pipelined8_top5_qps",
+             "engine_pipelined16_top5_qps", "engine_mmr_pipelined8_top5_qps", "engine_rerank_on_top5_qps",
+             "engine_judged_pipelined8_top5_qps"]
+    assert all(res[k] > 0 for k in lines)
+    assert res["engine_launches"] == {k: {"score_segmax_masked": 0, "fused_attention": 0} for k in lines}
+
+
+def test_launch_counts_attribute_launches_to_each_line():
+    """bench_server.LaunchCounts reads the wrappers' counters before and
+    after each engine line and never resets them."""
+    from rust_local_rag_tpu_torch.ops.attention import fused_attention
+    from rust_local_rag_tpu_torch.ops.score_segmax import score_segmax
+
+    saved = score_segmax.launches, fused_attention.launches
+    try:
+        counts = bench_server.LaunchCounts()
+        with counts.line("object"):
+            score_segmax.launches += 2
+        with counts.line("rerank_on"):
+            score_segmax.launches += 1
+            fused_attention.launches += 12
+        with pytest.raises(RuntimeError), counts.line("failed"):
+            score_segmax.launches += 1
+            raise RuntimeError("a line that raises still records its launches")
+        assert counts.lines == {"object": {"score_segmax_masked": 2, "fused_attention": 0},
+                                "rerank_on": {"score_segmax_masked": 1, "fused_attention": 12},
+                                "failed": {"score_segmax_masked": 1, "fused_attention": 0}}
+        assert (score_segmax.launches, fused_attention.launches) == (saved[0] + 4, saved[1] + 12)
+    finally:
+        score_segmax.launches, fused_attention.launches = saved

@@ -26,9 +26,10 @@ ROOT = os.path.dirname(PKG)
 # the card's machine has none of safetensors, tokenizers, aiohttp and the
 # JAX training stack (optax, flax, orbax: installed here, so a trainer that
 # picked one up would pass on the CPU only); the eval harness's client and
-# runner import requests and yaml; scripts/ holds the JAX experiments
+# runner import requests and yaml, its CLI rich; scripts/ holds the JAX
+# experiments
 FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "scripts", "safetensors", "tokenizers", "aiohttp", "requests",
-             "yaml", "optax", "flax", "orbax")
+             "yaml", "rich", "optax", "flax", "orbax")
 
 
 def _port_files():

@@ -310,15 +310,23 @@ def test_train_params_actually_sharded():
         ttrain.shard_params(model, build_mesh((8,), ("corpus",), device="cpu"))
 
 
-def test_uneven_model_axis_blocks():
-    """A vocabulary that does not divide over "model" (8,193 over 2 in the
-    committed encoder) splits as torch.tensor_split splits it."""
+def test_uneven_model_axis_refused_as_jax():
+    """A vocabulary that does not divide over "model" (257 over 2) is
+    refused by the port's shard_params, as jax.device_put refuses it on the
+    JAX package's 8-device CPU mesh; a dividing one (256) is accepted."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
     kw = dict(SMALL, vocab_size=257, activation_dtype="float32", out_dim=32)
     model = Encoder(EncoderConfig(**kw), torch.Generator().manual_seed(1))
-    whole = model.state_dict()["embed"].clone()
-    params = ttrain.shard_params(model, build_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2))
-    assert [tuple(b.shape) for b in params.blocks["embed"]] == [(129, 32), (128, 32)]
-    torch.testing.assert_close(params.state_dict()["embed"], whole, rtol=0, atol=0)
+    with pytest.raises(ValueError, match=r"embed \(257, 32\).*2 model shards"):
+        ttrain.shard_params(model, build_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2))
+    jmesh = jax_build_mesh((4, 2), ("data", "model"))
+    with pytest.raises(ValueError, match="divisible by 2"):
+        jax.device_put(np.zeros((257, 32), np.float32), NamedSharding(jmesh, P("model", None)))
+    even = Encoder(EncoderConfig(**dict(kw, vocab_size=256)), torch.Generator().manual_seed(1))
+    params = ttrain.shard_params(even, build_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2))
+    assert [tuple(b.shape) for b in params.blocks["embed"]] == [(128, 32), (128, 32)]
+    jax.device_put(np.zeros((256, 32), np.float32), NamedSharding(jmesh, P("model", None)))
 
 
 def test_contrastive_training_improves_retrieval():
