@@ -290,6 +290,7 @@ import json
 import logging
 import os
 import pty
+import re
 import select
 import shutil
 import signal
@@ -331,6 +332,7 @@ from rust_local_rag_tpu_torch.models.reranker_service import (
     RerankerService,
 )
 from rust_local_rag_tpu_torch.models.tokenizer import WordPieceTokenizer, load_tokenizer
+from rust_local_rag_tpu_torch.ops import attention as attention_ops
 from rust_local_rag_tpu_torch.ops.attention import attention_plain, fused_attention
 from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
 from rust_local_rag_tpu_torch.ops.fast_topk import segmented_select_from
@@ -428,6 +430,9 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12    # bf16 tensor cores, dense, H100 SXM data sheet
 H100_INT8_OPS = 1979e12     # int8 tensor cores, dense, H100 SXM data sheet
+# exps on the SFU: 16 a clock on each of 132 SMs, at the 1.83 GHz at which
+# the data sheet's bf16 tensor peak holds (132 SMs x 4,096 x 1.83e9 = 989e12)
+H100_EXPS_PER_S = 132 * 16 * 1.83e9
 # Scores are dots of unit vectors summed in f32 in different orders by the
 # kernel and by the plain version; each is within D * 2^-24 * |q| |c| of
 # the exact value, so they differ by at most 2 * 768 * 2^-24 = 9.2e-5.
@@ -836,17 +841,25 @@ def attention_case(seed: int, b: int, h: int, l: int, device, scattered: bool = 
     return q, k, v, mask
 
 
-def check_attention(q, k, v, mask, causal: bool) -> float:
-    """The kernel against attention_plain on the same inputs; with v read
-    through the transposed view the models pass, and k through rows padded
-    to 66 values (the kernel's 4-byte load path) it must give the same
-    bits. Returns the max |diff|."""
-    out = fused_attention(q, k, v, mask, causal)
+def attention_launcher(body: int):
+    """fused_attention's signature on the body named (ops.attention.BODIES),
+    counting no launch."""
+    return lambda q, k, v, mask, causal: attention_ops.launch_body(q, k, v, mask, causal, body)
+
+
+def check_attention(q, k, v, mask, causal: bool, kernel=None) -> float:
+    """The kernel (fused_attention, or the given call) against
+    attention_plain on the same inputs; with v read through the transposed
+    view the models pass, and k through rows padded to 66 values (the
+    kernel's 4-byte load path) it must give the same bits. Returns the max
+    |diff|."""
+    kernel = kernel or fused_attention
+    out = kernel(q, k, v, mask, causal)
     ref = attention_plain(q, k, v, mask, causal)
-    strided = fused_attention(q, k, v.transpose(1, 2).contiguous().transpose(1, 2), mask, causal)
+    strided = kernel(q, k, v.transpose(1, 2).contiguous().transpose(1, 2), mask, causal)
     padded = torch.zeros(*k.shape[:3], 66, dtype=k.dtype, device=k.device)
     padded[..., :64] = k
-    unaligned = fused_attention(q, padded[..., :64], v, mask, causal)
+    unaligned = kernel(q, padded[..., :64], v, mask, causal)
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise AssertionError("attention kernel: non-finite output")
@@ -1500,10 +1513,38 @@ def run_int8_scale(seed: int, dev, card: str) -> dict:
 def attention_bound(b: int, h: int, l: int):
     """(bound_ms, bound_by): q, k, v read and the output written once in
     bf16 plus the int32 mask, against the memory rate; 4*B*H*L^2*Dh
-    operations (QK^T and PV) against the bf16 tensor-core rate."""
+    operations (QK^T and PV) against the bf16 tensor-core rate. The exps
+    are a third floor, kept beside the bound (attention_exp_floor), not in
+    it, so the bound stays comparable with earlier records."""
     t_bytes = (4 * b * h * l * 64 * 2 + b * l * 4) / H100_BYTES_PER_S * 1e3
     t_ops = 4 * b * h * l * l * 64 / H100_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_exp_floor(b: int, h: int, l: int) -> float:
+    """ms for the B*H*L^2 exps of the softmax at the SFU rate."""
+    return b * h * l * l / H100_EXPS_PER_S * 1e3
+
+
+def ptxas_summary(log: str) -> list:
+    """[{function, registers, spill_stores, spill_loads}] a kernel
+    instantiation, from nvcc's -Xptxas -v output."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 def attention_bias(mask, causal: bool):
@@ -4552,8 +4593,9 @@ def main(argv=None) -> int:
     with phase("build", card, seconds):
         built = build.build_all()
         for res in built.values():
+            host = res.name in build.HOST_LIBRARIES
             log({"build": res.name, "seconds": res.seconds, "library": res.path.split("/")[-1],
-                 "compiler": "g++" if res.name in build.HOST_LIBRARIES else "nvcc"})
+                 "compiler": "g++" if host else "nvcc", **({} if host else {"ptxas": ptxas_summary(res.log)})})
             for line in res.log.splitlines():
                 if line.strip():
                     log(f"{'g++' if res.name in build.HOST_LIBRARIES else 'ptxas'}| {line}")
@@ -4621,8 +4663,17 @@ def main(argv=None) -> int:
             err = check_attention(*attention_case(args.seed + i, b, h, l, dev, scattered), causal)
             max_err_attn = max(max_err_attn, err)
             log({"kernel_check": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
-                 "masks": "scattered" if scattered else "prefix", "max_abs_err": err, "tol": ATTN_TOL,
-                 "card": card})
+                 "masks": "scattered" if scattered else "prefix", "body": attention_ops.body_for(l),
+                 "max_abs_err": err, "tol": ATTN_TOL, "card": card})
+        # where both bodies take a path shape's length (L <= 192) the
+        # attention table times both: the one not picked there is held too
+        for i, (b, h, l, causal) in enumerate(ATTN_SHAPES):
+            for n, name in attention_ops.bodies_for(l).items():
+                if name != attention_ops.body_for(l):
+                    err = check_attention(*attention_case(args.seed + i, b, h, l, dev), causal, attention_launcher(n))
+                    max_err_attn = max(max_err_attn, err)
+                    log({"kernel_check": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
+                         "masks": "prefix", "body": name, "max_abs_err": err, "tol": ATTN_TOL, "card": card})
         torch.cuda.synchronize()
 
     tmp = tempfile.mkdtemp(prefix="rag_port_smoke_")
@@ -4698,14 +4749,20 @@ def main(argv=None) -> int:
             kernel = lambda: fused_attention(q_, k_, v_, m_, causal)  # noqa: E731
             library = lambda: torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias)  # noqa: E731
             ms = cuda_ms(kernel)
+            # each body that takes this length, on the same inputs
+            bodies_ms = {name: cuda_ms(lambda n=n: attention_ops.launch_body(q_, k_, v_, m_, causal, n))
+                         for n, name in attention_ops.bodies_for(l).items()}
             plain_ms = cuda_ms(lambda: attention_plain(q_, k_, v_, m_, causal))
             library_ms = cuda_ms(library)
             b_ms, b_by = attention_bound(b, h, l)
             row = {"kernel_time": "fused_attention", "B": b, "H": h, "L": l, "Dh": 64, "causal": causal,
-                   "ms": ms, "call_ms": call_ms(kernel), "plain_ms": plain_ms, "library_ms": library_ms,
-                   "library_call_ms": call_ms(library), "bound_ms": b_ms, "bound_by": b_by, "card": card}
+                   "body": attention_ops.body_for(l), "ms": ms, "bodies_ms": bodies_ms, "call_ms": call_ms(kernel),
+                   "plain_ms": plain_ms, "library_ms": library_ms, "library_call_ms": call_ms(library),
+                   "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+                   "exp_floor_ms": attention_exp_floor(b, h, l), "card": card}
             log(row)
-            attn_table.append({k: row[k] for k in ("B", "H", "L", "causal", "ms", "call_ms", "bound_ms", "plain_ms",
+            attn_table.append({k: row[k] for k in ("B", "H", "L", "causal", "body", "ms", "bodies_ms", "call_ms",
+                                                   "bound_ms", "share_of_bound", "exp_floor_ms", "plain_ms",
                                                    "library_ms", "library_call_ms")})
             if (b, h, l, causal) == ATTN_MAIN:
                 attn_main = row

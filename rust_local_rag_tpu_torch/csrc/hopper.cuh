@@ -1,8 +1,9 @@
 // Hopper's asynchronous machinery, shared by the score + segment-max
-// kernel's tensor-core body (score_segmax.cu) and the resident dot probe
-// (resident_dot.cu): mbarriers, TMA tile copies, wgmma with its fences,
-// the 128-byte-swizzle operand descriptor, and cuTensorMapEncodeTiled
-// found through the runtime (so nothing links libcuda).
+// kernel's tensor-core body (score_segmax.cu), the resident dot probe
+// (resident_dot.cu) and the attention kernel's wgmma body (attention.cu):
+// mbarriers, TMA tile copies, wgmma with its fences, the 128-byte-swizzle
+// operand descriptor, and cuTensorMapEncodeTiled found through the runtime
+// (so nothing links libcuda).
 #pragma once
 
 #include <cuda.h>
@@ -59,6 +60,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
       : "memory");
 }
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int x, int y, int z, int w,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w), "r"(bar)
+      : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (wgmma operands) once a barrier passes them on
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 

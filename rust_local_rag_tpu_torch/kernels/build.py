@@ -67,6 +67,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "attention": {
         "attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 9, _I, _I, _P]),
+        "attention_fwd_body": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, *[_L] * 9, _I, _I, _P, _I]),
+        "attention_body": (_I, [_I]),
         "attention_error_string": (ctypes.c_char_p, [_I]),
     },
     "segmax": {

@@ -12,6 +12,9 @@ computed like the others.
 
 fused_attention launches the kernel for CUDA tensors and runs the plain
 version only for CPU tensors; there is no fallback from one to the other.
+The kernel has two bodies (BODIES): mma.sync up to L 64 and wgmma beyond;
+body_for(L) names the one a length takes, and launch_body runs a named one
+(for timing one against the other; it counts no launch).
 The encoder and the reranker take this path only when use_fused_attention()
 is on (RAG_TPU_FUSED_ATTN=1), as in the JAX package.
 """
@@ -84,6 +87,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
             )
 
 
+# csrc/attention.cu's bodies by their C numbers (0 lets the kernel choose);
+# the mma.sync body takes L <= 192 when named (MMA_SYNC_MAX_L there)
+BODIES = {1: "mma.sync", 2: "wgmma"}
+MMA_SYNC_MAX_LEN = 192
+
+
+def body_for(l: int) -> str:
+    """The body the kernel takes at length l (asks the built library)."""
+    return BODIES[build.load("attention").attention_body(l)]
+
+
+def bodies_for(l: int) -> dict:
+    """{number: name} of the bodies launch_body takes at length l."""
+    return {n: name for n, name in BODIES.items() if name == "wgmma" or l <= MMA_SYNC_MAX_LEN}
+
+
 def fused_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
@@ -110,6 +129,29 @@ def fused_attention(
         msg = lib.attention_error_string(err).decode()
         raise RuntimeError(f"fused_attention kernel launch failed: {msg} ({err})")
     fused_attention.launches += 1
+    return out
+
+
+def launch_body(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, causal: bool, body: int
+) -> torch.Tensor:
+    """fused_attention's kernel on CUDA tensors with the body named (a key
+    of BODIES), for timing one body against the other; counts no launch."""
+    _check(q, k, v, mask)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_attention: unsupported device {dev}")
+    lib = build.load("attention")
+    b, h, l, _ = q.shape
+    out = torch.empty((b, h, l, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    err = lib.attention_fwd_body(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        b, h, l, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), dev.index, torch.cuda.current_stream(dev).cuda_stream, body,
+    )
+    if err != 0:
+        msg = lib.attention_error_string(err).decode()
+        raise RuntimeError(f"fused_attention kernel launch failed: {msg} ({err})")
     return out
 
 

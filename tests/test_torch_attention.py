@@ -48,7 +48,9 @@ def _both(q, k, v, mask, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,h,l,dh", [(2, 2, 64, 64), (3, 2, 192, 64), (2, 3, 128, 64)])
+@pytest.mark.parametrize(
+    "b,h,l,dh", [(2, 2, 64, 64), (3, 2, 192, 64), (2, 3, 128, 64), (2, 2, 256, 64), (2, 1, 512, 64)]
+)
 def test_attention_plain_matches_pallas_kernel(b, h, l, dh, causal):
     q, k, v, mask = _inputs(b * 100 + l, b, h, l, dh)
     before = tatt.fused_attention.launches
@@ -61,7 +63,7 @@ def test_attention_plain_matches_pallas_kernel(b, h, l, dh, causal):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("b,h,l", [(3, 2, 64), (4, 2, 192), (3, 1, 100)])
+@pytest.mark.parametrize("b,h,l", [(3, 2, 64), (4, 2, 192), (3, 1, 100), (3, 2, 256), (3, 1, 512)])
 def test_non_prefix_causal_masks_match_pallas_kernel(b, h, l):
     """Masks that are not prefixes, under causal: row 0 has key 0 masked and
     later keys valid, row 1 is masked in its first half, the last row has no
@@ -146,6 +148,102 @@ def test_kernel_arithmetic_step_for_step():
     p = torch.softmax(s, dim=-1).to(torch.bfloat16).double()
     want = (p @ vd).to(torch.bfloat16).double()
     np.testing.assert_allclose(got[:-1].numpy(), want[:-1].numpy(), atol=ATOL, rtol=RTOL)
+
+
+def _float64_reference(tq, tk, tv, mask, causal):
+    """The TPU kernel's function recomputed in float64 from the bf16 inputs:
+    softmax over the biased scores, p rounded to bf16, PV, output in bf16."""
+    l = tq.shape[2]
+    qd, kd, vd = (t.double() for t in (tq, tk, tv))
+    bias = torch.where(torch.from_numpy(mask)[:, None, None, :] > 0, 0.0, -1e9).double()
+    if causal:
+        pos = torch.arange(l)
+        bias = bias + torch.where(pos[None, :] > pos[:, None], -1e9, 0.0).double()
+    s = qd @ kd.transpose(-1, -2) * 0.125 + bias
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).double()
+    return (p @ vd).to(torch.bfloat16).double()
+
+
+def _fma32(a, b, c):
+    """float32 a * b + c with one rounding (a product of two float32 is
+    exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _wgmma_body_order(tq, tk, tv, mask, causal):
+    """csrc/attention.cu's wgmma body in its own order, in float32. A
+    warpgroup takes 256 keys (keys 256 w .. 256 w + 255; one warpgroup up to
+    L 256, the keys past L biased -inf) in two halves of 128: per half the
+    scaled, biased scores, their row max m_h, e = 2^(s log2 e - m_h log2 e)
+    (0 for a half wholly past L) and the row sum l_h. Then m_w = max m_h,
+    f_h = 2^((m_h - m_w) log2 e) (1 where m_h = m_w), l_w = l_A f_A + l_B
+    f_B; across the warpgroups the same with F_w, and p = e (f_h F_w) (1 /
+    l) rounded to bf16; PV summed in f32 a warpgroup, the two sums added,
+    bf16 out."""
+    b, h, l, _ = tq.shape
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    inf = torch.tensor(float("inf"))
+    bias = torch.where(torch.from_numpy(mask)[:, None, None, :] > 0, 0.0, -1e9).float()
+    if causal:
+        pos = torch.arange(l)
+        bias = bias + torch.where(pos[None, :] > pos[:, None], -1e9, 0.0).float()
+    s = torch.matmul(tq.float(), tk.float().transpose(-1, -2)) * 0.125 + bias
+    width = 512 if l > 256 else 256
+    s = torch.cat([s, torch.full((b, h, l, width - l), -inf)], dim=-1)  # keys past L
+    v = torch.cat([tv.float(), torch.zeros(b, h, width - l, 64)], dim=2)
+
+    def ex2(x):
+        return torch.exp2(x)
+
+    ranges = []  # a warpgroup: (e of both halves, f of both halves, m_w, l_w)
+    for k0 in range(0, width, 256):
+        es, ms, ls = [], [], []
+        for half in (k0, k0 + 128):
+            part = s[..., half : half + 128]
+            m_h = part.amax(dim=-1, keepdim=True)
+            ml = torch.where(m_h == -inf, 0.0, m_h * log2e)
+            e = ex2(_fma32(part, log2e.expand_as(part), -ml.expand_as(part)))
+            es.append(e)
+            ms.append(m_h)
+            ls.append(e.sum(dim=-1, keepdim=True))
+        m_w = torch.maximum(ms[0], ms[1])
+        fs = [torch.where(m_h == m_w, 1.0, ex2((m_h - m_w) * log2e)) for m_h in ms]
+        ranges.append((es, fs, m_w, ls[0] * fs[0] + ls[1] * fs[1]))
+    if len(ranges) == 1:
+        es, fs, _, l_w = ranges[0]
+        coefs = [[f * (1.0 / l_w) for f in fs]]
+    else:
+        (_, _, m0, l0), (_, _, m1, l1) = ranges
+        m = torch.maximum(m0, m1)
+        big = [torch.where(m_w == m, 1.0, ex2((m_w - m) * log2e)) for m_w in (m0, m1)]
+        inv = 1.0 / (l0 * big[0] + l1 * big[1])
+        coefs = [[(f * big[w]) * inv for f in ranges[w][1]] for w in range(2)]
+    out = None
+    for w, (es, _, _, _) in enumerate(ranges):
+        p = torch.cat([(e * c).to(torch.bfloat16).float() for e, c in zip(es, coefs[w])], dim=-1)
+        part = torch.matmul(p, v[..., 256 * w : 256 * w + 256, :])
+        out = part if out is None else out + part
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,h,l", [(3, 2, 100), (3, 2, 192), (3, 2, 256), (3, 2, 300), (3, 1, 512)])
+def test_wgmma_body_order_matches_plain_and_float64(b, h, l, causal):
+    """The wgmma body's order of the arithmetic (each half of a warpgroup's
+    keys exponentiated against its own max, rescaled by exp(m_h - m) before
+    the division by the row sum) emulated in float32 from seeded bf16
+    inputs, held against attention_plain on every row and against the
+    float64 recomputation on the rows with a valid key (the all-masked row:
+    see test_kernel_arithmetic_step_for_step), at atol = rtol = 2e-2. L 100
+    leaves a half wholly past L, L 300 a half of the second warpgroup."""
+    q, k, v, mask = _inputs(b * 7 + l, b, h, l, 64)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = _wgmma_body_order(tq, tk, tv, mask, causal).float()
+    plain = tatt.attention_plain(tq, tk, tv, torch.from_numpy(mask), causal=causal).float()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=RTOL)
+    want = _float64_reference(tq, tk, tv, mask, causal)
+    np.testing.assert_allclose(got[:-1].double().numpy(), want[:-1].numpy(), atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("fused", [False, True])
