@@ -273,7 +273,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bench_server, scripts/bench_server.py's engine lines (the object lane
    at 128 and 512 queries, the MMR hot lane pipelined at 64 and 512, the
    object lane with the judge at 128), each with the masked kernel's
-   launches, which must be above 0 in each.
+   launches, which must be above 0 in each;
+14. the model-update loop (rust_local_rag_tpu_torch/tools/, ROADMAP C13):
+   sweep (after quality): tools.sweep_rejection at thresholds 0.0 and
+   0.06 against `python -m rust_local_rag_tpu_torch` over the eval corpus,
+   each point's hit, mrr and rejection in [0, 1] and the threshold-0 point
+   (baseline.yaml itself) equal to quality's baseline; model_paths (after
+   train, on its checkpoints): build_default_service / build_default_reranker
+   with ENCODER_WEIGHTS / RERANKER_WEIGHTS naming them must serve the
+   embeddings and yes-p of the same files loaded by explicit path (within
+   1e-6) and not the committed encoder's, and a named file that does not
+   exist the seeded random init with JAX's log line; calibration:
+   tools.judge_dev builds the dev heads (168 queries x 15) with the
+   committed encoder into a cache of this run, then judge_dev's and
+   gate_grid's mains with RAG_TPU_FUSED_ATTN=1 (attention launches counted,
+   above 0), every candidate's yes-p with the kernel within RR_TOL of the
+   same fused path with attention_plain in the kernel's place, the gap to
+   the plain path (RAG_TPU_FUSED_ATTN unset, f32 q.k) recorded with the
+   gate table it gives, and the gate table's headline numbers; scale_check:
+   tools.scale_check at 100,000 rows (capacity 131,072: the masked kernel,
+   counted, above 0), oracle PASS, ms a query and qps; soak: tools.soak
+   for 20 s against `python -m rust_local_rag_tpu_torch` (committed models,
+   RAG_TPU_FUSED_ATTN=1) over 6 eval documents, one of them rewritten and
+   reindexed each cycle: 0 errors and the final revision served. The
+   phase_seconds line gives the total.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -2391,21 +2414,6 @@ HTTP_LANES = {
 SERVER_TOL = 1e-6
 DISK_BEHIND = 32000  # chunks left on disk under the running server (C8)
 HTTP_BURSTS = (1, 16, 64)
-# int8 capacity mode: the band of tests/test_int8_exact.py at D 768 among
-# seeded distractors, compared at BAND_TOL (its rows tie within 2e-5)
-INT8_BAND = 200
-INT8_DISTRACTORS = 20000
-BAND_TOL = 1e-6
-# a load renormalises the saved (dequantised) rows before it quantises them
-# again, so a reload's scores move within tests/test_int8_engine.py's budget
-INT8_RELOAD_TOL = 2e-3
-# int8_scale: the README's 10M chunks on one chip, N cut to 611 x 16,384
-INT8_N = 611 * 16384
-INT8_SCALE_Q = (16, 64)
-INT8_SCALE_TOP_K = (10, 100)
-INT8_SCALE_TOL = 1e-5
-INT8_BLOCK = 1 << 18  # rows generated, quantised or scanned at once
-INT8_ESCALATION_PEAK = 4e9  # bytes the escalation lane may add above the slab
 SERIALIZER_SOURCE = "rust_local_rag_tpu_torch/csrc/serializer.cpp"
 GATE_QUERIES = "eval_harness/ground_truth/queries.jsonl"
 GATE_TOP_K = 5  # eval_harness/configs/baseline.yaml top_k
@@ -4564,8 +4572,223 @@ def run_train(seed: int, dev, card: str, tmp: str) -> dict:
         raise AssertionError(f"the trained reranker does not serve finite scores: {scored}")
     log({"train_reranker": summary, "f16_bound": bound, "served": len(scored), "card": card})
     out["train_reranker"] = summary
+    out["checkpoints"] = {"encoder": enc_out, "reranker": rr_out, "tokenizer": tok_path}
     del judge, rr
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- the model-update loop ----
+
+MODEL_PATH_TOL = 1e-6  # the same weights through the same kernels on one card
+CALIBRATION_POINTS = "0.0,0.06"  # sweep_rejection's two points in the smoke
+SCALE_N = 100_000  # scale_check's rows (tools/scale_check.py's default)
+SOAK_SECONDS = 20.0
+SOAK_DOCS = 6  # the eval corpus's first authored documents under the soak
+
+
+@contextmanager
+def model_logs():
+    """The INFO records of the port's model loaders inside the block."""
+    records: list = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger("rust_local_rag_tpu_torch.models")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def run_model_paths(ckpt: dict, dev, card: str, tmp: str) -> dict:
+    """ROADMAP C13 on the card (phase model_paths, after train): the
+    services built with ENCODER_WEIGHTS / RERANKER_WEIGHTS naming the
+    checkpoints train wrote must give the embeddings and yes-p of the same
+    checkpoints loaded by explicit path (and not the committed models'); a
+    named file that does not exist must give the seeded random init with
+    its log line."""
+    from rust_local_rag_tpu_torch.models.embedding_service import build_default_service
+    from rust_local_rag_tpu_torch.models.reranker_service import build_default_reranker
+
+    texts = ["How do I replace the pump seal?", "Torque the flange bolts to 45 Nm in a star pattern.",
+             "The starter should double in size before the dough is mixed."]
+    prompts = [DEFAULT_PROMPT_TEMPLATE.format(query=texts[0], document="m.pdf", page="1", section="N/A", text=t)
+               for t in texts]
+    explicit_enc = encoder_module.TransformerEncoderModel.from_assets(weights_path=ckpt["encoder"], device=dev)
+    explicit_rr = TransformerReranker.from_assets(weights_path=ckpt["reranker"], device=dev)
+    committed_enc = encoder_module.TransformerEncoderModel.from_assets(device=dev)
+    want_emb, want_rr = explicit_enc.encode(texts), np.asarray(explicit_rr.score_prompts(prompts))
+    committed_emb = committed_enc.encode(texts)
+    del explicit_enc, explicit_rr, committed_enc
+    score_segmax.launches = fused_attention.launches = 0
+    with ExitStack() as stack:
+        for k, v in (("ENCODER_WEIGHTS", ckpt["encoder"]), ("RERANKER_WEIGHTS", ckpt["reranker"]),
+                     ("RAG_TPU_RERANK_MODEL", "tpu-reranker")):
+            stack.enter_context(env_set(k, v))
+        svc, rr = build_default_service(dev), build_default_reranker(dev)
+        got_emb, got_rr = svc.embed_texts(texts), np.asarray(rr.score_prompts(prompts))
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+    emb_err, rr_err = float(np.abs(got_emb - want_emb).max()), float(np.abs(got_rr - want_rr).max())
+    if emb_err > MODEL_PATH_TOL or rr_err > MODEL_PATH_TOL:
+        raise AssertionError(f"model_paths: the named checkpoints serve other outputs ({emb_err}, {rr_err})")
+    committed_gap = float(np.abs(got_emb - committed_emb).max())
+    if committed_gap < 1e-2:
+        raise AssertionError(f"model_paths: ENCODER_WEIGHTS served the committed encoder (gap {committed_gap})")
+    missing = os.path.join(tmp, "missing.safetensors")
+    with model_logs() as records, env_set("ENCODER_WEIGHTS", missing), env_set("RERANKER_WEIGHTS", missing):
+        rand_enc = encoder_module.TransformerEncoderModel.from_assets(device=dev)
+        rand_rr = TransformerReranker.from_assets(device=dev)
+        rand_emb, rand_scores = rand_enc.encode(texts), rand_rr.score_prompts(prompts)
+    lines = [r.getMessage() for r in records if "random init" in r.getMessage()]
+    if lines != ["Encoder running with seeded random init (no weights file)",
+                 "Reranker running with seeded random init"]:
+        raise AssertionError(f"model_paths: the missing file's log lines are {lines}")
+    if not (rand_emb.shape == (3, 768) and np.isfinite(rand_emb).all() and rand_enc.cfg.depth == 12
+            and rand_rr.judge_seq_len == 192 and np.isfinite(np.asarray(rand_scores)).all()):
+        raise AssertionError("model_paths: the random inits do not serve")
+    del rand_enc, rand_rr, svc, rr
+    torch.cuda.empty_cache()
+    out = {"model_paths": {"emb_max_abs_err": emb_err, "yes_p_max_abs_err": rr_err, "tol": MODEL_PATH_TOL,
+                           "gap_to_committed_encoder": committed_gap, "random_init_lines": lines,
+                           "launches": launches}, "card": card}
+    log(out)
+    return out["model_paths"]
+
+
+def run_calibration(dev, card: str, tmp: str) -> dict:
+    """The offline calibration studies on the card (phase calibration):
+    tools.judge_dev builds the dev heads over the eval corpus with the
+    committed encoder (cache in the smoke's directory: nothing read from an
+    earlier run), then judge_dev's and gate_grid's mains with the attention
+    kernel on (RAG_TPU_FUSED_ATTN=1; launches counted, > 0); then, beside
+    the path, every candidate's yes-p with the kernel within RR_TOL of the
+    same fused path with the kernel's plain twin (attention_plain) in its
+    place, the gap to the plain path (RAG_TPU_FUSED_ATTN unset: f32 q.k)
+    recorded, and the gate table's headline numbers."""
+    from rust_local_rag_tpu_torch.tools import blend_offline, common, gate_grid, judge_dev
+
+    judge_dev.CACHE = os.path.join(tmp, "calibration", "torch_dev_heads.pkl")
+    if os.path.exists(judge_dev.CACHE):
+        raise AssertionError("calibration: a heads cache exists before the phase")
+    t0 = time.perf_counter()
+    heads = judge_dev._heads(dev)
+    heads_s = time.perf_counter() - t0
+    if len(heads) != 168 or sum(h[1] for h in heads) != 15 or any(len(h[3]) != 15 for h in heads):
+        raise AssertionError(f"calibration: {len(heads)} heads")
+    score_segmax.launches = fused_attention.launches = 0
+    with env_set("RAG_TPU_FUSED_ATTN", "1"):
+        t0 = time.perf_counter()
+        judge_dev.main([])
+        gate_grid.main([])
+        mains_s = time.perf_counter() - t0
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+    if launches["fused_attention"] == 0:
+        raise AssertionError("calibration: the judge forward launched no attention kernel")
+    rr = common.default_judge(dev)
+    with env_set("RAG_TPU_FUSED_ATTN", "1"):
+        yes_on = np.asarray(common.score_heads(heads, rr))
+        # the same fused path (q and k rounded to bf16, as JAX's fused
+        # branch rounds them) with the kernel's plain twin in its place
+        encoder_module.fused_attention = attention_plain
+        try:
+            yes_twin = np.asarray(common.score_heads(heads, rr))
+        finally:
+            encoder_module.fused_attention = fused_attention
+    if os.environ.get("RAG_TPU_FUSED_ATTN"):
+        raise AssertionError("calibration: RAG_TPU_FUSED_ATTN is set outside the kernel's pass")
+    yes_off = np.asarray(common.score_heads(heads, rr))
+    err = float(np.abs(yes_on - yes_twin).max())
+    if not (np.isfinite(yes_on).all() and ((yes_on >= 0) & (yes_on <= 1)).all()) or err > RR_TOL:
+        raise AssertionError(f"calibration: yes-p kernel / plain twin differ by {err} (tol {RR_TOL})")
+    # the fused path against the plain one (f32 q.k): recorded, not bounded
+    # here: the two round q and k differently (PERF.md §6, §7)
+    on_off = np.abs(yes_on - yes_off)
+    grid = gate_grid.table(heads, yes_on)
+    grid_off = gate_grid.table(heads, yes_off)
+    jd = judge_dev.table(heads, yes_on)
+    blend = blend_offline.table([h for h in heads if not h[1]], yes_on[np.repeat([not h[1] for h in heads], 15)])
+    out = {"calibration": {"heads": len(heads), "prompts": len(yes_on), "heads_s": heads_s, "mains_s": mains_s,
+                           "launches": launches, "yes_p_kernel_vs_plain_twin_max_abs_err": err,
+                           "tol": RR_TOL, "yes_p_fused_vs_plain_path": {
+                               "max": float(on_off.max()), "p99": float(np.percentile(on_off, 99)),
+                               "above_tol": int((on_off > RR_TOL).sum()),
+                               "gate_passing_plain_path": grid_off["n_passing"],
+                               "gate_best_plain_path": grid_off["passing"][:1]},
+                           "judge_dev": {k: jd[k] for k in ("gold_max", "gold_best_gold", "junk_max")},
+                           "gate_passing": grid["n_passing"], "gate_best": grid["passing"][:1],
+                           "pareto": grid["pareto"][:6], "blend": blend}, "card": card}
+    log(out)
+    return out["calibration"]
+
+
+def run_sweep(quality: dict, card: str) -> dict:
+    """tools.sweep_rejection with two points against the port's server on
+    the card over the eval corpus (phase sweep, after quality): each point's
+    hit, mrr and rejection in [0, 1], and the threshold-0 point (baseline.yaml
+    itself) equal to the quality phase's baseline. The server is a process
+    of its own, so this process counts no launch."""
+    from rust_local_rag_tpu_torch.tools import sweep_rejection
+
+    if os.environ.get("RAG_TPU_FUSED_ATTN"):
+        raise AssertionError("sweep: RAG_TPU_FUSED_ATTN is set; quality ran without it")
+    score_segmax.launches = fused_attention.launches = 0
+    res = sweep_rejection.sweep(CALIBRATION_POINTS, "cuda")
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+    base = quality["quality_table"]["baseline"]
+    want = {"hit": round(base["hit_rate_mean"], 3), "mrr": round(base["mrr_mean"], 3),
+            "rej": round(base["rejection_success_rate"], 3)}
+    if sorted(res) != ["0.0", "0.06"] or any(not 0.0 <= v <= 1.0 for r in res.values() for v in r.values()):
+        raise AssertionError(f"sweep: {res}")
+    if res["0.0"] != want:
+        raise AssertionError(f"sweep: the threshold-0 point {res['0.0']} is not quality's baseline {want}")
+    out = {"sweep": res, "quality_baseline": want, "launches_in_this_process": launches, "card": card}
+    log(out)
+    return out
+
+
+def run_scale_check(dev, card: str) -> dict:
+    """tools.scale_check at SCALE_N 100,000 (phase scale_check): the oracle
+    must pass, the store reach capacity 131,072 and the masked kernel
+    launch (counted) in the engine's searches."""
+    from rust_local_rag_tpu_torch.tools import scale_check
+
+    score_segmax.launches = fused_attention.launches = 0
+    res = scale_check.run(SCALE_N, dev, log=log)
+    launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+    if not res["oracle"] or res["capacity"] != 131072 or launches["score_segmax_masked"] == 0:
+        raise AssertionError(f"scale_check: {res}, launches {launches}")
+    out = {"scale_check": res, "launches": launches, "card": card}
+    log(out)
+    return out
+
+
+def run_soak(card: str, tmp: str) -> dict:
+    """tools.soak for SOAK_SECONDS against `python -m
+    rust_local_rag_tpu_torch` on the card (committed models,
+    RAG_TPU_FUSED_ATTN=1) over SOAK_DOCS documents of the eval corpus: zero
+    errors, every invariant held, the final revision served."""
+    from eval_harness import corpus
+
+    from rust_local_rag_tpu_torch.evaluation.quality import corpus_server
+    from rust_local_rag_tpu_torch.tools import soak
+
+    work = os.path.join(tmp, "soak")
+    docs, data, logs, every = (os.path.join(work, d) for d in ("documents", "data", "logs", "all"))
+    for d in (docs, data, logs):
+        os.makedirs(d)
+    for name in sorted(corpus.generate_corpus(every, with_distractors=False))[:SOAK_DOCS]:
+        os.replace(os.path.join(every, name), os.path.join(docs, name))
+    with corpus_server(docs, data, logs, "cuda", env={"RAG_TPU_FUSED_ATTN": "1"}, log=log) as (base, _, started):
+        res = soak.soak(base, SOAK_SECONDS, documents=docs)
+    c = res["counts"]
+    if res["errors"] or not res["final_revision"] or c["search"] == 0 or c["reindex"] < 2:
+        raise AssertionError(f"soak: {res['counts']}, errors {res['errors'][:10]}")
+    out = {"soak": {**res, "seconds": SOAK_SECONDS, "documents": SOAK_DOCS, "server": started}, "card": card}
+    log(out)
     return out
 
 
@@ -4790,7 +5013,9 @@ def main(argv=None) -> int:
         with phase("pdf_tiers", card, seconds):
             run_pdf_tiers(card, result["pdfs"], built)
         with phase("quality", card, seconds):
-            run_quality(card, late, seconds)
+            quality_out = run_quality(card, late, seconds)
+        with phase("sweep", card, seconds):
+            run_sweep(quality_out, card)
         with phase("bench", card, seconds):
             _, bench_launches = run_bench(card)
         with phase("bench_server", card, seconds):
@@ -4800,12 +5025,24 @@ def main(argv=None) -> int:
     train_tmp = tempfile.mkdtemp(prefix="rag_port_smoke_train_")
     try:
         with phase("train", card, seconds):
-            run_train(args.seed, dev, card, train_tmp)
+            trained = run_train(args.seed, dev, card, train_tmp)
+        with phase("model_paths", card, seconds):
+            paths_out = run_model_paths(trained["checkpoints"], dev, card, train_tmp)
         with phase("tok", card, seconds):
             run_tok(card, train_tmp)
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
-    log({"phase_seconds": seconds, "card": card})
+    loop_tmp = tempfile.mkdtemp(prefix="rag_port_smoke_loop_")
+    try:
+        with phase("calibration", card, seconds), env_set("RAG_TPU_RERANK_MODEL", "tpu-reranker"):
+            calib_out = run_calibration(dev, card, loop_tmp)
+        with phase("scale_check", card, seconds):
+            scale_out = run_scale_check(dev, card)
+        with phase("soak", card, seconds):
+            run_soak(card, loop_tmp)
+    finally:
+        shutil.rmtree(loop_tmp, ignore_errors=True)
+    log({"phase_seconds": seconds, "phase_total_s": sum(seconds.values()), "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
                       "f32_wide": result["f32_wide"]["launches"], "int8": result["int8"]["hot"]["score_segmax_masked"],
@@ -4815,10 +5052,14 @@ def main(argv=None) -> int:
                       "trace": result["trace"]["launches"]["score_segmax_masked"],
                       "bench": bench_launches["score_segmax_masked"],
                       "bench_server": server_launches["score_segmax_masked"],
-                      "sharded": result["sharded"]["launches"]}
+                      "sharded": result["sharded"]["launches"],
+                      "scale_check": scale_out["launches"]["score_segmax_masked"],
+                      "model_paths": paths_out["launches"]["score_segmax_masked"]}
     log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
     log({"new_path_launches": {"trace": result["trace"]["launches"], "bench": bench_launches,
-                               "bench_server": server_launches}, "card": card})
+                               "bench_server": server_launches, "model_paths": paths_out["launches"],
+                               "calibration": calib_out["launches"], "scale_check": scale_out["launches"]},
+         "card": card})
     bd, lx, tk = result["breakdown"], result["lexical"], result["tokenizer"]
     log({"host_libs": [{
         "name": "lexical",
@@ -4867,7 +5108,8 @@ def main(argv=None) -> int:
         "replaces": ATTN_REPLACES,
         "launches": (sum(x["fused_attention"] for x in rr["launches"].values()) + srv["launches"]["fused_attention"]
                      + result["int8"]["rerank"]["fused_attention"] + result["trace"]["launches"]["fused_attention"]
-                     + server_launches["fused_attention"]),
+                     + server_launches["fused_attention"] + calib_out["launches"]["fused_attention"]
+                     + paths_out["launches"]["fused_attention"]),
         "max_abs_err": max_err_attn,
         "ms": attn_main["ms"],
         "plain_ms": attn_main["plain_ms"],

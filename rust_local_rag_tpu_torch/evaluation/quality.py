@@ -18,6 +18,7 @@ package's committed round-5 report of that config.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -26,7 +27,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import List
+from typing import List, Optional
 
 from rust_local_rag_tpu_torch.evaluation.client import RAGClient
 from rust_local_rag_tpu_torch.evaluation.runner import EvalConfig, EvalRunner, load_ground_truth, write_reports
@@ -41,6 +42,9 @@ REFERENCE_REPORTS = {
     "bm25_only": "eval_bm25_only_20260821_025140.json",
     "baseline_thirdparty": "eval_baseline_thirdparty_20260821_025351.json",
 }
+# the server's environment for quality: the committed models, never the
+# hermetic ones a caller's environment may name
+HERMETIC_ENV = ("RAG_TPU_FAKE_ENCODER", "RAG_TPU_FAKE_RERANKER", "RAG_TPU_NO_DEFAULT_ASSETS")
 READY_TIMEOUT_S = 900  # a first start on the card builds every kernel
 SUMMARY_KEYS = ("n_queries", "hit_rate_mean", "mrr_mean", "ndcg_mean", "rejection_success_rate", "passed",
                 "latency_p50_ms", "latency_p95_ms")
@@ -102,7 +106,13 @@ def reindex(client: RAGClient, timeout: float = 1800) -> dict:
 
 def evaluate(name: str, endpoint: str, ground_truth: str, out_dir: str) -> dict:
     """eval_harness.run's evaluate: one config's report, written to out_dir."""
-    cfg = EvalConfig.from_yaml(os.path.join(CONFIG_DIR, f"{name}.yaml"))
+    return evaluate_config(EvalConfig.from_yaml(os.path.join(CONFIG_DIR, f"{name}.yaml")), endpoint, ground_truth,
+                           out_dir)
+
+
+def evaluate_config(cfg: EvalConfig, endpoint: str, ground_truth: str, out_dir: str) -> dict:
+    """One config's report against the server at `endpoint`, written to
+    out_dir."""
     cfg.rag_endpoint, cfg.ground_truth_path = endpoint, ground_truth
     client = RAGClient(endpoint=cfg.rag_endpoint, mode=cfg.connection_mode)
     try:
@@ -113,6 +123,56 @@ def evaluate(name: str, endpoint: str, ground_truth: str, out_dir: str) -> dict:
         client.close()
     write_reports(report, out_dir)
     return report
+
+
+@contextlib.contextmanager
+def corpus_server(docs: str, data: str, logs: str, device: str = "cuda", clear_env=(), log=print,
+                  env: Optional[dict] = None):
+    """`python -m rust_local_rag_tpu_torch` over `docs` with the current
+    environment (and `env`, less the keys of `clear_env`), the judge named
+    tpu-reranker, on the card (device "cpu": RAG_TPU_PLATFORM=cpu): yields
+    (base_url, client, {"ready_s", "reindex_s", "stats"}) once it is ready
+    and POST /reindex has finished; the server is stopped afterwards."""
+    port = _free_port()
+    senv = dict(os.environ)
+    senv.update(DATA_DIR=data, DOCUMENTS_DIR=docs, LOG_DIR=logs, MCP_HTTP_BIND=f"127.0.0.1:{port}",
+                RAG_TPU_RERANK_MODEL="tpu-reranker",
+                PYTHONPATH=os.pathsep.join(p for p in (ROOT, senv.get("PYTHONPATH")) if p), **(env or {}))
+    for k in clear_env:
+        senv.pop(k, None)
+    if device == "cpu":
+        senv["RAG_TPU_PLATFORM"] = "cpu"
+    else:
+        senv.pop("RAG_TPU_PLATFORM", None)
+    base = f"http://127.0.0.1:{port}"
+    os.makedirs(logs, exist_ok=True)
+    out_path = os.path.join(logs, "server.out")
+    with open(out_path, "w") as out_f:
+        srv = subprocess.Popen([sys.executable, "-m", "rust_local_rag_tpu_torch"], env=senv, cwd=ROOT,
+                               stdout=out_f, stderr=subprocess.STDOUT)
+    client = RAGClient(base)
+    try:
+        t0 = time.monotonic()
+        while not client.health_check():
+            if srv.poll() is not None:
+                raise RuntimeError(f"server died (exit {srv.returncode}):\n{_tail(out_path)}")
+            if time.monotonic() - t0 > READY_TIMEOUT_S:
+                raise RuntimeError(f"server never became ready:\n{_tail(out_path)}")
+            time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        stats = reindex(client)
+        started = {"ready_s": ready_s, "reindex_s": time.monotonic() - t0, "stats": stats}
+        log(json.dumps({"quality_server": started}))
+        yield base, client, started
+    finally:
+        client.close()
+        srv.terminate()
+        try:
+            srv.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
 
 
 def run_quality(out_dir: str, heldout: bool = False, thirdparty: bool = False, device: str = "cuda",
@@ -136,36 +196,8 @@ def run_quality(out_dir: str, heldout: bool = False, thirdparty: bool = False, d
             gt["test"] = os.path.join(work, "queries_heldout.jsonl")
             log(f"+ {generate_ground_truth(gt['test'], split='test')} held-out test-split queries")
             runs.append(("baseline_heldout", "test"))
-        port = _free_port()
-        senv = dict(os.environ)
-        senv.update(DATA_DIR=data, DOCUMENTS_DIR=docs, LOG_DIR=logs, MCP_HTTP_BIND=f"127.0.0.1:{port}",
-                    RAG_TPU_RERANK_MODEL="tpu-reranker",
-                    PYTHONPATH=os.pathsep.join(p for p in (ROOT, senv.get("PYTHONPATH")) if p))
-        for k in ("RAG_TPU_FAKE_ENCODER", "RAG_TPU_FAKE_RERANKER", "RAG_TPU_NO_DEFAULT_ASSETS"):
-            senv.pop(k, None)
-        if device == "cpu":
-            senv["RAG_TPU_PLATFORM"] = "cpu"
-        else:
-            senv.pop("RAG_TPU_PLATFORM", None)
-        base = f"http://127.0.0.1:{port}"
-        out_path = os.path.join(work, "server.out")
-        with open(out_path, "w") as out_f:
-            srv = subprocess.Popen([sys.executable, "-m", "rust_local_rag_tpu_torch"], env=senv, cwd=ROOT,
-                                   stdout=out_f, stderr=subprocess.STDOUT)
-        client = RAGClient(base)
-        try:
-            t0 = time.monotonic()
-            while not client.health_check():
-                if srv.poll() is not None:
-                    raise RuntimeError(f"server died (exit {srv.returncode}):\n{_tail(out_path)}")
-                if time.monotonic() - t0 > READY_TIMEOUT_S:
-                    raise RuntimeError(f"server never became ready:\n{_tail(out_path)}")
-                time.sleep(0.5)
-            ready_s = time.monotonic() - t0
-            t0 = time.monotonic()
-            stats = reindex(client)
-            reindex_s = time.monotonic() - t0
-            log(json.dumps({"quality_server": {"ready_s": ready_s, "reindex_s": reindex_s, "stats": stats}}))
+        with corpus_server(docs, data, logs, device, clear_env=HERMETIC_ENV, log=log) as (base, client, started):
+            stats = started["stats"]
             results = {}
             for name, split in runs:
                 results[name] = _one(name, base, gt[split], out_dir, log)
@@ -182,15 +214,8 @@ def run_quality(out_dir: str, heldout: bool = False, thirdparty: bool = False, d
                 results["baseline_thirdparty"] = _one("baseline_thirdparty", base, gt["thirdparty"], out_dir, log)
             if after is not None:
                 after(base, gt["dev"], results)
-            return {"configs": results, "stats": stats, "ready_s": ready_s, "reindex_s": reindex_s}
-        finally:
-            client.close()
-            srv.terminate()
-            try:
-                srv.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                srv.kill()
-                srv.wait()
+            return {"configs": results, "stats": stats, "ready_s": started["ready_s"],
+                    "reindex_s": started["reindex_s"]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

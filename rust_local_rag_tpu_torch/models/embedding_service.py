@@ -190,7 +190,8 @@ class EmbeddingService:
 
 def build_default_service(device="cuda", model_name: Optional[str] = None) -> EmbeddingService:
     """The configured encoder under `model_name` (default
-    get_embedding_model()): the committed transformer on `device`, or the
+    get_embedding_model()): the transformer at ENCODER_WEIGHTS or the
+    committed one (TransformerEncoderModel.from_assets) on `device`, or the
     hash encoder at RAG_TPU_FAKE_ENCODER_DIM (768) when RAG_TPU_FAKE_ENCODER
     is set, as the JAX package's build_default_service."""
     name = model_name or get_embedding_model()

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
 from dataclasses import dataclass
@@ -36,6 +37,8 @@ from rust_local_rag_tpu_torch.device import resolve_device
 from rust_local_rag_tpu_torch.models.checkpoint import read_safetensors
 from rust_local_rag_tpu_torch.models.tokenizer import bucket_batch, load_tokenizer
 from rust_local_rag_tpu_torch.ops.attention import fused_attention, use_fused_attention
+
+logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -69,6 +72,14 @@ def default_asset(name: str) -> str:
     (rust_local_rag_tpu/assets/<name>); the port reads the same files."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     return os.path.join(root, "rust_local_rag_tpu", "assets", name)
+
+
+def resolve_model_file(explicit: Optional[str], env_key: str, asset: str) -> str:
+    """The file a model loads, in the JAX package's order
+    (encoder.py:249-258, reranker.py:234-238 there): the explicit argument,
+    then the environment variable `env_key` (ENCODER_WEIGHTS,
+    RERANKER_WEIGHTS or TOKENIZER_PATH), then the committed asset."""
+    return explicit or os.environ.get(env_key) or default_asset(asset)
 
 
 def _rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -252,15 +263,28 @@ class TransformerEncoderModel:
         tokenizer_path: Optional[str] = None,
         model_name: str = "nomic-embed-text",
         device: str | torch.device = "cuda",
+        cfg: Optional[EncoderConfig] = None,
+        seed: int = 0,
     ) -> "TransformerEncoderModel":
-        """The committed encoder and tokenizer unless paths are given."""
+        """The encoder and tokenizer resolved by resolve_model_file
+        (argument, ENCODER_WEIGHTS / TOKENIZER_PATH, committed asset). A
+        weights file that does not exist gives a random init seeded with
+        `seed` (0, as in the JAX package) at `cfg` (default EncoderConfig()),
+        logged as JAX logs it; an explicit `cfg` wins over the checkpoint's,
+        whose missing config means the defaults (encoder.py:266-283 there)."""
         dev = resolve_device(device)
-        enc, meta = load_encoder_checkpoint(weights_path or default_asset("encoder.safetensors"))
-        tok = load_tokenizer(
-            tokenizer_path or default_asset("tokenizer.json"),
-            vocab_size=enc.cfg.vocab_size,
-            max_len=enc.cfg.max_len,
-        )
+        weights_path = resolve_model_file(weights_path, "ENCODER_WEIGHTS", "encoder.safetensors")
+        tokenizer_path = resolve_model_file(tokenizer_path, "TOKENIZER_PATH", "tokenizer.json")
+        meta: dict = {}
+        if os.path.exists(weights_path):
+            state, meta_cfg, meta = load_encoder_checkpoint_full(weights_path)
+            enc = Encoder(cfg or meta_cfg or EncoderConfig())
+            enc.load_state_dict(state)
+            logger.info("Loaded encoder weights from %s", weights_path)
+        else:
+            enc = Encoder(cfg or EncoderConfig(), torch.Generator().manual_seed(seed))
+            logger.info("Encoder running with seeded random init (no weights file)")
+        tok = load_tokenizer(tokenizer_path, vocab_size=enc.cfg.vocab_size, max_len=enc.cfg.max_len)
         return cls(
             enc, tok, model_name,
             query_prefix=meta.get("query_prefix", ""),

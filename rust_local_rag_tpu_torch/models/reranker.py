@@ -22,7 +22,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -38,11 +40,13 @@ from rust_local_rag_tpu_torch.models.encoder import (
     _dense,
     _rmsnorm,
     _rope,
-    default_asset,
+    resolve_model_file,
     transformer_layer,
 )
 from rust_local_rag_tpu_torch.models.tokenizer import bucket_batch, load_tokenizer
 from rust_local_rag_tpu_torch.ops.attention import use_fused_attention
+
+logger = logging.getLogger(__name__)
 
 MISSING_LOGPROB = -10.0  # reranker.rs:567-568
 
@@ -137,13 +141,13 @@ def softmax_yes_no(yes_lp: Optional[float], no_lp: Optional[float]) -> float:
     return ye / (ye + ne)
 
 
-def load_reranker_checkpoint(path: str):
-    """-> (Reranker with the file's weights, metadata dict). The config
-    comes from the ``reranker_config`` metadata entry (the defaults when
-    it is missing, as in the JAX package)."""
+def load_reranker_checkpoint(path: str, cfg: Optional[RerankerConfig] = None):
+    """-> (Reranker with the file's weights, metadata dict). The config is
+    `cfg` when given, else the ``reranker_config`` metadata entry (the
+    defaults when it is missing, as in the JAX package)."""
     tensors, meta = read_safetensors(path)
     cfg_json = meta.get("reranker_config")
-    model = Reranker(RerankerConfig.from_json(cfg_json) if cfg_json else RerankerConfig())
+    model = Reranker(cfg or (RerankerConfig.from_json(cfg_json) if cfg_json else RerankerConfig()))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in tensors.items()})
     return model, meta
 
@@ -180,16 +184,27 @@ class TransformerReranker:
         tokenizer_path: Optional[str] = None,
         model_name: str = "tpu-reranker",
         device: str | torch.device = "cuda",
+        cfg: Optional[RerankerConfig] = None,
+        seed: int = 1,
     ) -> "TransformerReranker":
-        """The committed reranker and tokenizer unless paths are given."""
+        """The judge and tokenizer resolved by resolve_model_file (argument,
+        RERANKER_WEIGHTS / TOKENIZER_PATH, committed asset). A weights file
+        that does not exist gives a random init seeded with `seed` (1, as in
+        the JAX package) at `cfg` (default RerankerConfig()) and
+        train_seq_len 192, logged as JAX logs it (reranker.py:234-269 there)."""
         dev = resolve_device(device)
-        model, meta = load_reranker_checkpoint(weights_path or default_asset("reranker.safetensors"))
-        tok = load_tokenizer(
-            tokenizer_path or default_asset("tokenizer.json"),
-            vocab_size=model.cfg.vocab_size,
-            max_len=model.cfg.max_len,
-        )
-        return cls(model, tok, int(meta.get("train_seq_len", "192")), model_name, dev)
+        weights_path = resolve_model_file(weights_path, "RERANKER_WEIGHTS", "reranker.safetensors")
+        tokenizer_path = resolve_model_file(tokenizer_path, "TOKENIZER_PATH", "tokenizer.json")
+        if os.path.exists(weights_path):
+            model, meta = load_reranker_checkpoint(weights_path, cfg)
+            seq_len = int(meta.get("train_seq_len", "192"))
+            logger.info("Loaded reranker weights from %s", weights_path)
+        else:
+            model = Reranker(cfg or RerankerConfig(), torch.Generator().manual_seed(seed))
+            seq_len = 192
+            logger.info("Reranker running with seeded random init")
+        tok = load_tokenizer(tokenizer_path, vocab_size=model.cfg.vocab_size, max_len=model.cfg.max_len)
+        return cls(model, tok, seq_len, model_name, dev)
 
     def _decision_ids(self, a: str, b: str) -> tuple:
         """The first ids at which the two words' tokenisations differ."""

@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from rust_local_rag_tpu_torch.config import get_prompts_dir, get_rerank_model
+from rust_local_rag_tpu_torch.device import resolve_device
 from rust_local_rag_tpu_torch.models.reranker import FakeReranker, TransformerReranker
 
 logger = logging.getLogger(__name__)
@@ -198,18 +199,22 @@ class RerankerService:
 
 
 def build_default_reranker(device: str | torch.device = "cuda") -> Optional[RerankerService]:
-    """The configured reranker (named by get_rerank_model()): the committed
-    model, or the hash FakeReranker when RAG_TPU_FAKE_RERANKER is set
-    (hermetic mode); None when none is configured. A model that fails to
-    load is logged and gives None: the reference treats reranker start-up
-    failure as non-fatal (rag_engine.rs:164-176)."""
+    """The configured reranker (named by get_rerank_model()): the judge at
+    RERANKER_WEIGHTS or the committed one (TransformerReranker.from_assets),
+    or the hash FakeReranker when RAG_TPU_FAKE_RERANKER is set (hermetic
+    mode); None when none is configured. The device is resolved before the
+    judge is built, so a missing card raises; any other failure to build
+    the judge is logged and gives None, as the JAX package catches every
+    Exception there: the reference treats reranker start-up failure as
+    non-fatal (rag_engine.rs:164-176)."""
     name = get_rerank_model()
     if not name:
         return None
     if os.environ.get("RAG_TPU_FAKE_RERANKER"):
-        return RerankerService(FakeReranker(model_name=name))
+        return RerankerService(FakeReranker(model_name=name))  # needs no device
+    dev = resolve_device(device)
     try:
-        return RerankerService(TransformerReranker.from_assets(model_name=name, device=device))
-    except (OSError, ValueError, KeyError) as e:
+        return RerankerService(TransformerReranker.from_assets(model_name=name, device=dev))
+    except Exception as e:  # noqa: BLE001
         logger.warning("Reranker unavailable, falling back to embedding scores only: %s", e)
         return None

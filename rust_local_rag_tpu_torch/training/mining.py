@@ -4,17 +4,19 @@ BM25; the top-k is torch.matmul + torch.topk on the device).
 
 Shared by the encoder and reranker trainers. Two pieces:
 
-* ``mine_dense_neighbors`` — nearest-paragraph table under the COMMITTED
-  dense encoder: the semantically-adjacent near-misses the serving hybrid
-  pool surfaces that BM25 mining cannot see (moved here from
-  train_reranker.py, which keeps importing it).
+* ``mine_dense_neighbors`` — nearest-paragraph table under the dense
+  encoder at ENCODER_WEIGHTS (else the committed one): the
+  semantically-adjacent near-misses the serving hybrid pool surfaces that
+  BM25 mining cannot see (moved here from train_reranker.py, which keeps
+  importing it).
 * ``denoise_with_reranker`` — RocketQA-style false-negative filter
   (Qu et al. 2021): dense-mined neighbors are dominated by paraphrase-level
   TRUE answers, and the recorded reranker v3/v4 negative results show a
   cosine near-duplicate cut (>0.9) alone is not sufficient — paraphrase
   near-positives below the cut still dominate. Here every surviving
-  neighbor is additionally judged by the committed cross-encoder reranker
-  against a canonical query crop of its source paragraph; neighbors the
+  neighbor is additionally judged by the cross-encoder reranker at
+  RERANKER_WEIGHTS (else the committed one) against a canonical query
+  crop of its source paragraph; neighbors the
   judge answers "yes" to (margin above threshold) are presumed false
   negatives and dropped. Only confidently-"no" neighbors survive as
   training negatives.
@@ -38,9 +40,13 @@ import numpy as np
 import torch
 
 from rust_local_rag_tpu_torch.device import resolve_device
-from rust_local_rag_tpu_torch.models.encoder import default_asset
+from rust_local_rag_tpu_torch.models.encoder import resolve_model_file
 
 _CACHE_DIR = os.path.join("~", ".cache", "rag_tpu_premine")
+# (environment variable, committed asset) of the models mining runs: the
+# files the serving loaders resolve (models/encoder.resolve_model_file)
+ENCODER_FILE = ("ENCODER_WEIGHTS", "encoder.safetensors")
+RERANKER_FILE = ("RERANKER_WEIGHTS", "reranker.safetensors")
 
 
 def _cache_path(name: str) -> str:
@@ -75,12 +81,12 @@ def mine_dense_neighbors(
     max_sim: float = 0.9,
     device="cuda",
 ) -> Optional[np.ndarray]:
-    """[P, n_neighbors] int32 neighbor table mined by the COMMITTED dense
-    encoder on `device`: for each paragraph, the nearest other paragraphs
+    """[P, n_neighbors] int32 neighbor table mined by the dense encoder at
+    ENCODER_WEIGHTS (else the committed one) on `device`: for each paragraph, the nearest other paragraphs
     by cosine — the semantically-adjacent near-misses the hybrid first
-    stage surfaces that BM25 mining cannot see. Returns None when no
-    trained encoder asset exists (v2-recipe fallback)."""
-    if not os.path.exists(default_asset("encoder.safetensors")):
+    stage surfaces that BM25 mining cannot see. Returns None when that
+    weights file does not exist (v2-recipe fallback)."""
+    if not os.path.exists(resolve_model_file(None, *ENCODER_FILE)):
         return None
     from rust_local_rag_tpu_torch.models.embedding_service import build_default_service
 
@@ -146,8 +152,9 @@ def denoise_with_reranker(
 ) -> Tuple[np.ndarray, dict]:
     """Drop presumed false negatives from a mined neighbor table.
 
-    For each valid (source i, neighbor j) the committed reranker scores the
-    serving prompt built from a canonical query crop of ``texts[i]``
+    For each valid (source i, neighbor j) the reranker at RERANKER_WEIGHTS
+    (else the committed one) scores the serving prompt built from a
+    canonical query crop of ``texts[i]``
     against ``texts[j]``; entries whose yes/no logit margin exceeds
     ``margin`` are judged to actually ANSWER the query (false negatives —
     paraphrase-level true matches) and replaced with -1. Returns the
@@ -158,7 +165,7 @@ def denoise_with_reranker(
     from rust_local_rag_tpu_torch.models.reranker import TransformerReranker
     from rust_local_rag_tpu_torch.models.reranker_service import DEFAULT_PROMPT_TEMPLATE
 
-    if not os.path.exists(default_asset("reranker.safetensors")):
+    if not os.path.exists(resolve_model_file(None, *RERANKER_FILE)):
         raise RuntimeError(
             "denoise_with_reranker needs the trained reranker asset"
         )
@@ -240,7 +247,7 @@ def mine_junk_neighbors(
 
     pool = list(range(len(paragraphs))) if pool is None else list(pool)
 
-    enc_path = default_asset("encoder.safetensors")
+    enc_path = resolve_model_file(None, *ENCODER_FILE)
     have_encoder = os.path.exists(enc_path) and n_dense > 0
 
     h = hashlib.sha256()
@@ -347,10 +354,12 @@ def cached_denoised_table(
 
     h = hashlib.sha256()
     h.update(f"torch|dense|{n_neighbors}|{margin}|".encode())
-    # the weights' paths, sizes and times: a run against other weights
-    # gets another key
-    for asset in ("encoder.safetensors", "reranker.safetensors"):
-        p = default_asset(asset)
+    # the resolved weights' paths, sizes and times (ENCODER_WEIGHTS /
+    # RERANKER_WEIGHTS first, as mining loads them): a run against other
+    # weights gets another key (JAX mining.py:373-387)
+    for which in (ENCODER_FILE, RERANKER_FILE):
+        asset = which[1]
+        p = resolve_model_file(None, *which)
         st = os.stat(p) if os.path.exists(p) else None
         h.update(
             f"{asset}:{p}:{st.st_size}:{st.st_mtime_ns}|".encode()

@@ -32,6 +32,13 @@ FORBIDDEN = ("jax", "jaxlib", "rust_local_rag_tpu", "scripts", "safetensors", "t
              "yaml", "rich", "optax", "flax", "orbax")
 
 
+# the JAX scripts import each other by bare name (sweep_common,
+# exp_judge_dev, oracle_check, ...) with scripts/ on sys.path; the port
+# keeps its own copies in tools/
+SCRIPT_MODULES = frozenset(f[:-3] for f in os.listdir(os.path.join(ROOT, "scripts")) if f.endswith(".py"))
+REFUSED = frozenset(FORBIDDEN) | SCRIPT_MODULES
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "score_segmax_timing.py")]
     for d, _, files in os.walk(PKG):
@@ -53,7 +60,7 @@ def _imported(path):
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_imports_nothing_forbidden(path):
-    bad = [m for m in _imported(path) if m and m.split(".")[0] in FORBIDDEN]
+    bad = [m for m in _imported(path) if m and m.split(".")[0] in REFUSED]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
@@ -94,6 +101,20 @@ def test_ast_check_sees_forbidden_imports(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import jax.numpy as jnp\nfrom rust_local_rag_tpu.ops import hybrid\n")
     assert [m.split(".")[0] for m in _imported(str(p))] == ["jax", "rust_local_rag_tpu"]
+
+
+def test_ast_check_sees_script_modules_by_name(tmp_path):
+    """A bare import of a scripts/ module (as the JAX scripts import
+    sweep_common, exp_judge_dev and oracle_check) is refused; the port's
+    own tools of the same names are not."""
+    assert {"sweep_common", "exp_judge_dev", "oracle_check", "scale_check", "soak"} <= SCRIPT_MODULES
+    p = tmp_path / "m.py"
+    p.write_text("import oracle_check\nfrom sweep_common import eval_server\nfrom exp_judge_dev import CACHE\n"
+                 "from rust_local_rag_tpu_torch.tools import sweep_common\n"
+                 "import rust_local_rag_tpu_torch.tools.oracle_check\n")
+    hits = [m for m in _imported(str(p)) if m.split(".")[0] in REFUSED]
+    assert hits == ["oracle_check", "sweep_common", "exp_judge_dev"]
+    assert any(os.path.relpath(f, PKG).startswith("tools") for f in _port_files())
 
 
 def test_ast_check_sees_the_jax_training_stack(tmp_path):
@@ -172,6 +193,23 @@ def test_experiment_entry_points_refuse_without_card(no_card, name):
     mod = importlib.import_module(f"rust_local_rag_tpu_torch.experiments.{name}")
     with pytest.raises(RuntimeError, match="cuda"):
         mod.main([])
+
+
+@pytest.mark.parametrize("name", ["judge_dev", "gate_grid", "blend_offline", "joint_ood", "query_cosine_floor",
+                                  "scale_check", "sweep_blend", "sweep_gate", "sweep_qfloor", "sweep_rejection",
+                                  "sweep_unseen", "sweep_hybrid_weights", "sweep_rerank_weight"])
+def test_tool_entry_points_refuse_without_card(no_card, name, monkeypatch, tmp_path):
+    """`python -m rust_local_rag_tpu_torch.tools.<name>` runs on the card by
+    default and raises without one, before it builds, reads or boots
+    anything."""
+    import importlib
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    mod = importlib.import_module(f"rust_local_rag_tpu_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main([])
+    assert not os.listdir(tmp_path)
 
 
 def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
