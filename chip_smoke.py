@@ -295,7 +295,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    counted, above 0), oracle PASS, ms a query and qps; soak: tools.soak
    for 20 s against `python -m rust_local_rag_tpu_torch` (committed models,
    RAG_TPU_FUSED_ATTN=1) over 6 eval documents, one of them rewritten and
-   reindexed each cycle: 0 errors and the final revision served. The
+   reindexed each cycle: 0 errors and the final revision served;
+15. the last scripts of ROADMAP A: topk_profiles (after
+   experiments_times): experiments.profile_topk, qscale, qscale2 and
+   blockn at the bench shard, N 1,245,184 bf16, freed after (qscale's and
+   qscale2's mains raise unless segmented_topk at Q 512 and 1,024 equals
+   torch.topk over the kernel's scores and holds to the plain plane), then
+   profile_topk's pipeline against the same; xla_studies:
+   experiments.rw_segmax, xla_blocked, xla_segmax and partialreduce at the
+   bench shard, each main's check fatal, row 2's kernel timed beside each
+   (the unmasked kernel's launches counted over both phases); after soak,
+   engine_profiles: tools.server_profile and tools.dispatch_profile (QB
+   512) on one engine of bench_server's smoke size (131,072 chunks, f32
+   slab), the masked kernel's launches counted and above 0; ceilings:
+   tools.stack_ceiling (null, and bm25 over 131,072 Zipf texts),
+   http_ceiling, proto_ceiling and reuseport, each `python -m` for a few
+   seconds in a session of its own: exit 0, 0 errors, nothing left in its
+   session, its port free. Phase 3 holds the tensor-core body at Q 1,024
+   too (f32 and bf16 queries, N 65,536 and 65,920), and the times table
+   adds it at Q 256 and 1,024 on the bench shard with bf16 queries. The
    phase_seconds line gives the total.
 
 Every file except the kernel build goes to a temporary directory outside
@@ -333,13 +351,21 @@ import torch
 
 import rust_local_rag_tpu_torch.models.encoder as encoder_module
 from rust_local_rag_tpu_torch.experiments import (
+    blockn,
     common as exp_common,
     dma_probe,
     isolate2,
     isolate_kernel,
+    partialreduce,
+    profile_topk,
+    qscale,
+    qscale2,
+    rw_segmax,
     split2,
     split_pipeline,
     stream_kernel,
+    xla_blocked,
+    xla_segmax,
 )
 from rust_local_rag_tpu_torch.config import QueryWeights, ResolvedWeights, get_embedding_model
 from rust_local_rag_tpu_torch.engine import persistence
@@ -433,9 +459,15 @@ EDGE_SHAPES = ((65536, 768), (65920, 768), (65536, 776), (65920, 776))
 # bf16 queries (one term; at any Q, so Q 1 and 16 too), at EDGE_SHAPES
 WIDE_Q = (17, 32, 64, 128, 129, 512)
 BF16_QUERY_Q = (1, 16) + WIDE_Q
+# the tensor-core body's widest batch (experiments/qscale's Q 1,024: eight
+# query tiles), f32 and bf16 queries, at the stream's two row counts
+WIDEST_Q = (1024,)
+WIDEST_SHAPES = ((65536, 768), (65920, 768))
 # the tensor-core body timed: the serving shape at a batch of 64
 # (RAG_TPU_BATCH_MAX=64), bench.py's shard at its Q 128 and 512
 WIDE_TIMES = ((64, 65536), (128, 1245184), (512, 1245184))
+# and at experiments/qscale's new widths, bf16 queries (its case)
+QSCALE_TIMES = ((256, 1245184), (1024, 1245184))
 # the f32 FMA body timed (f32 slab, f32 queries): a batch of 64, Q 512 at
 # the serving slab, bench.py's shard at Q 128 (Q 128 at N 65,536 is in TIME_Q)
 F32_WIDE_TIMES = ((64, 65536), (512, 65536), (128, 1245184))
@@ -1006,10 +1038,12 @@ def score_segmax_times(qs, corpus, mask, card: str, reps: int = 7, calls: int = 
 def wide_times(seed: int, dev, card: str) -> dict:
     """The bodies past the stream (score_segmax_times): the tensor-core body
     at WIDE_TIMES on bf16 slabs with f32 and bf16 queries, the f32 FMA body
-    at F32_WIDE_TIMES on f32 slabs. -> {(entry, Q, N, slab, query dtype): row}."""
+    at F32_WIDE_TIMES on f32 slabs, the tensor-core body at QSCALE_TIMES
+    with bf16 queries. -> {(entry, Q, N, slab, query dtype): row}."""
     rows = {}
     for slab, shapes, qdts in ((torch.bfloat16, WIDE_TIMES, (torch.float32, torch.bfloat16)),
-                               (torch.float32, F32_WIDE_TIMES, (torch.float32,))):
+                               (torch.float32, F32_WIDE_TIMES, (torch.float32,)),
+                               (torch.bfloat16, QSCALE_TIMES, (torch.bfloat16,))):
         for q, n in shapes:
             queries, corpus, mask = kernel_case(seed, q, slab, dev, n)
             reps, calls = (7, 10) if n == N_SLAB else (5, 3)
@@ -4792,6 +4826,136 @@ def run_soak(card: str, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------- the last scripts of A ----
+
+TOPK_PROFILES = (profile_topk, qscale, qscale2, blockn)
+XLA_STUDIES = (rw_segmax, xla_blocked, xla_segmax, partialreduce)
+ENGINE_PROFILE_N = BENCH_SERVER_N  # bench_server's smoke size: its slab runs the masked kernel
+DISPATCH_QB = 512  # tools/dispatch_profile's default batch
+# the host ceilings at a few seconds a point, each `python -m` in a session
+# of its own: (module, argv)
+CEILINGS = (("stack_ceiling", ["null", "64", "3"]),
+            ("stack_ceiling", ["bm25", "64", "3", str(BENCH_SERVER_N)]),
+            ("http_ceiling", ["--seconds", "2"]),
+            ("proto_ceiling", ["--seconds", "2"]),
+            ("reuseport", ["--seconds", "2"]))
+
+
+def jsonable(obj):
+    """obj with tuple dict keys joined by '_' (json.dumps refuses them)."""
+    if isinstance(obj, dict):
+        return {("_".join(map(str, k)) if isinstance(k, tuple) else k): jsonable(v) for k, v in obj.items()}
+    return obj
+
+
+def run_modules(mods, dev, what: str) -> dict:
+    """Each module's main at its own (the bench shard's) shape, the
+    unmasked kernel's launches set to 0 just before and read just after.
+    -> {"results": {module: main()}, "launches": n}."""
+    fused_score_segmax.launches = 0
+    results = {}
+    for mod in mods:
+        log(f"-- python -m {mod.__name__}")
+        before = fused_score_segmax.launches
+        results[mod.__name__.rsplit(".", 1)[1]] = jsonable(mod.main(device=dev))
+        log({"launches": {"fused_score_segmax": fused_score_segmax.launches - before}, "module": mod.__name__})
+    launches = fused_score_segmax.launches
+    if launches <= 0:
+        raise AssertionError(f"{what} never launched the unmasked kernel")
+    return {"results": results, "launches": launches}
+
+
+def run_topk_profiles(seed: int, dev, card: str) -> dict:
+    """experiments.profile_topk, qscale, qscale2 and blockn at the bench
+    shard (qscale's and qscale2's mains raise on a top-k that is not exact
+    at Q 512 and 1,024), then profile_topk's whole pipeline held to
+    torch.topk over the kernel's own scores (values and indices) and to the
+    plain plane (EXP_REL_TOL, over the largest score)."""
+    out = run_modules(TOPK_PROFILES, dev, "topk_profiles")
+    corpus = exp_common.normal_bf16((N_BENCH, DIM), seed, dev)
+    qs = exp_common.normal_bf16((exp_common.Q, DIM), seed + 1, dev)
+    v, i = profile_topk.pipeline(qs, corpus, 128)
+    wv, wi = torch.topk(fused_score_segmax(qs, corpus)[0], exp_common.K, dim=1)
+    okv, oki, ties = exp_common.same_topk(v, i, wv, wi)
+    plain = exp_common.check_topk(v, i, qs, corpus, EXP_REL_TOL)
+    out["pipeline_check"] = {"values": okv, "indices": oki, "boundary_ties": ties, **plain, "rel_tol": EXP_REL_TOL}
+    del corpus, qs, v, i, wv, wi
+    exp_common.release(dev)
+    log({"topk_profiles": out, "card": card})
+    if not (okv and oki) or plain["max_rel_err"] > EXP_REL_TOL or plain["outside_top_k"]:
+        raise AssertionError(f"profile_topk's pipeline is not the exact top-k: {out['pipeline_check']}")
+    return out
+
+
+def run_xla_studies(dev, card: str) -> dict:
+    """experiments.rw_segmax, xla_blocked, xla_segmax and partialreduce at
+    the bench shard, each raising on a failed exactness or equality check,
+    with row 2's kernel timed beside each."""
+    out = run_modules(XLA_STUDIES, dev, "xla_studies")
+    log({"xla_studies": out, "card": card})
+    return out
+
+
+def run_engine_profiles(dev, card: str) -> dict:
+    """tools.server_profile and tools.dispatch_profile (QB 512) on one
+    engine of ENGINE_PROFILE_N chunks built as server_profile builds it
+    (f32 slab), the masked kernel's launches counted over both."""
+    from rust_local_rag_tpu_torch import bench_server
+    from rust_local_rag_tpu_torch.tools import dispatch_profile, server_profile
+
+    with tempfile.TemporaryDirectory(prefix="rag_port_smoke_prof_") as tmp:
+        t0 = time.perf_counter()
+        eng = server_profile.build(ENGINE_PROFILE_N, tmp, dev, log)
+        try:
+            build_s = time.perf_counter() - t0
+            log(f"snapshots: {eng.lexical_index.compile_all()}")
+            score_segmax.launches = fused_attention.launches = 0
+            sp = server_profile.profile(eng, server_profile.queries(), log=log)
+            dp = dispatch_profile.decompose(eng, bench_server.zipf_queries(DISPATCH_QB), log=log)
+            launches = {"score_segmax_masked": score_segmax.launches, "fused_attention": fused_attention.launches}
+            capacity = eng.store.capacity
+        finally:
+            eng.embedding_service.close()
+    out = {"chunks": ENGINE_PROFILE_N, "slab_rows": capacity, "build_s": build_s, "server_profile": sp,
+           "dispatch_profile": dp, "launches": launches}
+    log({"engine_profiles": out, "card": card})
+    if sp["results_per_query"] != [100] * len(sp["results_per_query"]) or launches["score_segmax_masked"] <= 0:
+        raise AssertionError(f"engine_profiles: {sp['results_per_query'][:4]}..., launches {launches}")
+    return out
+
+
+def run_ceilings(card: str) -> dict:
+    """The four host ceilings (CEILINGS), each `python -m` in a session of
+    its own: exit 0, 0 errors, no child left in its session and its port
+    free. -> {"module argv": its JSON line}."""
+    from rust_local_rag_tpu_torch.tools import ceiling_common as cc
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    out = {}
+    for name, argv in CEILINGS:
+        proc = subprocess.Popen([sys.executable, "-m", f"rust_local_rag_tpu_torch.tools.{name}", *argv], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        left = cc.in_session(proc.pid)
+        if left:
+            os.killpg(proc.pid, signal.SIGKILL)
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} {argv} exited {proc.returncode}: {stderr[-2000:]}")
+        res = json.loads(stdout.strip().splitlines()[-1])[name]
+        key = " ".join([name, *argv])
+        out[key] = res
+        log({"ceiling": key, **res, "left_in_session": left, "card": card})
+        if res["errors"] or res["children_left"] or left or not cc.port_free(res["port"]):
+            raise AssertionError(f"{key}: errors {res['errors']}, children {res['children_left']}, left {left}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4854,9 +5018,12 @@ def main(argv=None) -> int:
         # past the stream: the tensor-core body on bf16 slabs with f32
         # queries and bf16 queries at any Q, and the f32 FMA body on f32
         # slabs, each Q on its own data
-        for slab, qdt, q_list in ((torch.bfloat16, torch.float32, WIDE_Q), (torch.bfloat16, torch.bfloat16,
-                                  BF16_QUERY_Q), (torch.float32, torch.float32, WIDE_Q)):
-            for n, d in EDGE_SHAPES:
+        for slab, qdt, q_list, shapes in ((torch.bfloat16, torch.float32, WIDE_Q, EDGE_SHAPES),
+                                          (torch.bfloat16, torch.bfloat16, BF16_QUERY_Q, EDGE_SHAPES),
+                                          (torch.float32, torch.float32, WIDE_Q, EDGE_SHAPES),
+                                          (torch.bfloat16, torch.float32, WIDEST_Q, WIDEST_SHAPES),
+                                          (torch.bfloat16, torch.bfloat16, WIDEST_Q, WIDEST_SHAPES)):
+            for n, d in shapes:
                 errs = {"score_segmax_masked": [], "fused_score_segmax": [], "all_freed": []}
                 for q in q_list:
                     queries, corpus, mask = kernel_case(args.seed + q, q, slab, dev, n, d, freed="segment")
@@ -4933,6 +5100,10 @@ def main(argv=None) -> int:
         exp_launches = run_experiments(dev)
     with phase("experiments_times", card, seconds):
         exp_times = experiments_times(args.seed, dev, card)
+    with phase("topk_profiles", card, seconds):
+        topk_prof = run_topk_profiles(args.seed, dev, card)
+    with phase("xla_studies", card, seconds):
+        xla_out = run_xla_studies(dev, card)
 
     with phase("times", card, seconds):
         main_path = None
@@ -5042,6 +5213,10 @@ def main(argv=None) -> int:
             run_soak(card, loop_tmp)
     finally:
         shutil.rmtree(loop_tmp, ignore_errors=True)
+    with phase("engine_profiles", card, seconds):
+        prof_out = run_engine_profiles(dev, card)
+    with phase("ceilings", card, seconds):
+        run_ceilings(card)
     log({"phase_seconds": seconds, "phase_total_s": sum(seconds.values()), "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
@@ -5054,11 +5229,15 @@ def main(argv=None) -> int:
                       "bench_server": server_launches["score_segmax_masked"],
                       "sharded": result["sharded"]["launches"],
                       "scale_check": scale_out["launches"]["score_segmax_masked"],
-                      "model_paths": paths_out["launches"]["score_segmax_masked"]}
+                      "model_paths": paths_out["launches"]["score_segmax_masked"],
+                      "engine_profiles": prof_out["launches"]["score_segmax_masked"]}
     log({"score_segmax_masked_launches_by_path": masked_by_path, "card": card})
     log({"new_path_launches": {"trace": result["trace"]["launches"], "bench": bench_launches,
                                "bench_server": server_launches, "model_paths": paths_out["launches"],
-                               "calibration": calib_out["launches"], "scale_check": scale_out["launches"]},
+                               "calibration": calib_out["launches"], "scale_check": scale_out["launches"],
+                               "engine_profiles": prof_out["launches"],
+                               "topk_profiles": {"fused_score_segmax": topk_prof["launches"]},
+                               "xla_studies": {"fused_score_segmax": xla_out["launches"]}},
          "card": card})
     bd, lx, tk = result["breakdown"], result["lexical"], result["tokenizer"]
     log({"host_libs": [{
@@ -5109,7 +5288,7 @@ def main(argv=None) -> int:
         "launches": (sum(x["fused_attention"] for x in rr["launches"].values()) + srv["launches"]["fused_attention"]
                      + result["int8"]["rerank"]["fused_attention"] + result["trace"]["launches"]["fused_attention"]
                      + server_launches["fused_attention"] + calib_out["launches"]["fused_attention"]
-                     + paths_out["launches"]["fused_attention"]),
+                     + paths_out["launches"]["fused_attention"] + prof_out["launches"]["fused_attention"]),
         "max_abs_err": max_err_attn,
         "ms": attn_main["ms"],
         "plain_ms": attn_main["plain_ms"],
@@ -5121,7 +5300,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": UNMASKED_REPLACES,
-        "launches": topk_launches + exp_launches["fused_score_segmax"] + bench_launches["fused_score_segmax"],
+        "launches": (topk_launches + exp_launches["fused_score_segmax"] + bench_launches["fused_score_segmax"]
+                     + topk_prof["launches"] + xla_out["launches"]),
         "max_abs_err": max_err_unmasked,
         "ms": unmasked_main["ms"],
         "plain_ms": unmasked_main["plain_ms"],

@@ -18,9 +18,14 @@ import subprocess
 import torch
 
 from rust_local_rag_tpu_torch.device import resolve_device
+from rust_local_rag_tpu_torch.ops.score_segmax import SEG, fused_score_segmax, fused_score_segmax_plain
 from rust_local_rag_tpu_torch.ops.stream_probe import scores_f32
 
 N, D, Q, K, STEPS = 1_245_184, 768, 128, 100, 8
+# the unit of the score + segment-max kernel's tensor-core body, fixed when
+# it is compiled (csrc/score_segmax.cu: W_QROWS, W_ROW, SMEM_MAX and the six
+# stages at most of w_stages)
+W_QROWS, W_ROW, W_STAGES_MAX, SMEM_MAX = 64, 128, 6, 232448
 
 
 def parse_device(argv=None, doc: str = "") -> torch.device:
@@ -121,3 +126,51 @@ def release(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
 
+
+
+def tensor_core_unit(q: int, terms: int = 1) -> dict:
+    """What the tensor-core body of the score + segment-max kernel takes at
+    Q queries of `terms` bf16 terms (1 for bf16 queries, 3 for f32 ones),
+    as csrc/score_segmax.cu's w_rows / w_stage / w_stages / w_smem compute
+    it: a unit of 64 queries x 256 rows at Q <= 64, else 128 x 128; the
+    ring's stages and a block's dynamic shared memory; the query tiles each
+    unit of rows is scored for. Q alone sets it: the JAX kernel's block_n,
+    a VMEM tile of the slab, has no counterpart on the card."""
+    qw = 1 if q <= W_QROWS else 2
+    rows = 2 * SEG // qw
+    stage = (rows + terms * W_QROWS * qw) * W_ROW
+    stages = min((SMEM_MAX - 1024 - W_STAGES_MAX * 16) // stage, W_STAGES_MAX)
+    return {"unit_queries": W_QROWS * qw, "unit_rows": rows, "stages": stages,
+            "smem_bytes": stages * (stage + 16) + 1024, "query_tiles": -(-q // (W_QROWS * qw))}
+
+
+def unit_text(q: int) -> str:
+    u = tensor_core_unit(q)
+    return (f"unit {u['unit_queries']} queries x {u['unit_rows']} rows, {u['query_tiles']} query tile(s), "
+            f"{u['stages']} stages, {u['smem_bytes']:,} B shared")
+
+
+def kernel_ms(qs: torch.Tensor, corpus: torch.Tensor, dev: torch.device) -> float:
+    """Row 2's kernel (ops/score_segmax.fused_score_segmax, the port of
+    pallas_topk.py's fused_score_segmax: the scores and their segment
+    maxima in one pass) on the same inputs, timed as the library
+    formulations beside it are."""
+    return timed(lambda: fused_score_segmax(qs, corpus), dev)
+
+
+def check_topk(gv, gi, qs, corpus, rel_tol: float) -> dict:
+    """An exact top-k (values [Q, k], indices [Q, k]) held to the plain
+    plane of the same inputs (fused_score_segmax_plain: f32 products of
+    the widened bf16 operands): each picked row's plain score within tol of
+    its value, and none below the plain k-th value by more than tol (two
+    rows whose scores tie within rounding may trade places), tol being
+    rel_tol times the plane's largest |score|.
+    -> {"max_abs_err", "max_rel_err", "outside_top_k"}."""
+    plain = fused_score_segmax_plain(qs, corpus)[0]
+    scale = float(plain.abs().max())
+    mine = torch.gather(plain, 1, gi.long())
+    kth = torch.topk(plain, gi.shape[1], dim=1).values[:, -1:]
+    del plain
+    err = float((mine - gv).abs().max())
+    return {"max_abs_err": err, "max_rel_err": err / scale,
+            "outside_top_k": int((mine < kth - rel_tol * scale).sum())}

@@ -184,7 +184,8 @@ def test_entry_points_default_to_cuda_and_refuse(no_card, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("name", ["split_pipeline", "split2", "stream_kernel", "isolate_kernel", "isolate2",
-                                  "dma_probe"])
+                                  "dma_probe", "profile_topk", "qscale", "qscale2", "blockn", "rw_segmax",
+                                  "xla_blocked", "xla_segmax", "partialreduce"])
 def test_experiment_entry_points_refuse_without_card(no_card, name):
     """`python -m rust_local_rag_tpu_torch.experiments.<name>` runs on the
     card by default and raises without one, before it makes any data."""
@@ -197,7 +198,8 @@ def test_experiment_entry_points_refuse_without_card(no_card, name):
 
 @pytest.mark.parametrize("name", ["judge_dev", "gate_grid", "blend_offline", "joint_ood", "query_cosine_floor",
                                   "scale_check", "sweep_blend", "sweep_gate", "sweep_qfloor", "sweep_rejection",
-                                  "sweep_unseen", "sweep_hybrid_weights", "sweep_rerank_weight"])
+                                  "sweep_unseen", "sweep_hybrid_weights", "sweep_rerank_weight", "server_profile",
+                                  "dispatch_profile"])
 def test_tool_entry_points_refuse_without_card(no_card, name, monkeypatch, tmp_path):
     """`python -m rust_local_rag_tpu_torch.tools.<name>` runs on the card by
     default and raises without one, before it builds, reads or boots
