@@ -314,7 +314,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    session, its port free. Phase 3 holds the tensor-core body at Q 1,024
    too (f32 and bf16 queries, N 65,536 and 65,920), and the times table
    adds it at Q 256 and 1,024 on the bench shard with bf16 queries. The
-   phase_seconds line gives the total.
+   phase_seconds line gives the total;
+16. the program's tracer (utils/profiling), after ceilings: tracing
+   ingests four documents of 32-256 seeded passages with the committed
+   encoder and RAG_TPU_FUSED_ATTN=1, once with the tracer off and once on;
+   the two must launch each kernel as often (attention above 0) and give
+   bit-identical embeddings, slab rows and BM25 hits; it logs the traced
+   pass's stage totals and the tracer's host ns a span off and on over a
+   loop of 1,000,000 spans.
 
 Every file except the kernel build goes to a temporary directory outside
 the repository, removed at the end. The last line is the contract line
@@ -4924,6 +4931,95 @@ def run_engine_profiles(dev, card: str) -> dict:
     return out
 
 
+TRACING_DOCS = (32, 96, 144, 256)  # passages a document, the span of the ingest benchmark's mix
+TRACER_LOOP = 1_000_000
+
+
+def tracing_ingest(dev, seed: int, data_dir: str) -> tuple:
+    """TRACING_DOCS through embed_in_batches and add_chunks, as the ingest
+    benchmark feeds them -> (embeddings, slab rows, BM25 hits, launches)."""
+    from rust_local_rag_tpu_torch.models.embedding_service import build_default_service
+
+    rng = np.random.default_rng(seed)
+    probs = 1.0 / np.arange(1, len(WORDS) + 1) ** 0.8
+    probs = probs / probs.sum()
+    docs = [chunk_texts(rng, n, probs) for n in TRACING_DOCS]
+    queries = queries_for(rng, 8, probs)
+    svc = build_default_service(dev)
+    engine = RagEngine(data_dir, svc, None, device=dev)
+    before = (score_segmax.launches, fused_attention.launches)
+    try:
+        embs = []
+        for d, texts in enumerate(docs):
+            embs.append(svc.embed_in_batches(texts))
+            engine.add_chunks([ChunkMeta(id=f"d{d}-{i}", document_name=f"doc{d}.pdf", text=t, chunk_index=i,
+                                         page_number=1) for i, t in enumerate(texts)], embs[-1])
+        torch.cuda.synchronize()
+        rows = engine.store.corpus()[:len(engine.store)].cpu()
+        hits = []
+        for q in queries:
+            slots, vals = np.full(64, -1, np.int32), np.zeros(64, np.float32)
+            n = engine.lexical_index.score_slots_into(q, 64, slots, vals)
+            hits.append((slots[:n].tolist(), vals[:n].tolist()))
+    finally:
+        svc.close()
+    launches = {"score_segmax_masked": score_segmax.launches - before[0],
+                "fused_attention": fused_attention.launches - before[1]}
+    return np.concatenate(embs), rows, hits, launches
+
+
+def tracer_ns_per_span(on: bool) -> float:
+    """Host ns a span (enter and leave, nothing inside) over TRACER_LOOP
+    spans, the loop's own time included, with the tracer on or off."""
+    from rust_local_rag_tpu_torch.utils import profiling
+
+    profiling.TRACER.on = on
+    try:
+        t0 = time.perf_counter_ns()
+        for _ in range(TRACER_LOOP):
+            with profiling.span("smoke.loop"):
+                pass
+        return (time.perf_counter_ns() - t0) / TRACER_LOOP
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
+def run_tracing(dev, card: str, seed: int) -> dict:
+    """The program's tracer (utils/profiling) on the card: the ingest of
+    TRACING_DOCS with RAG_TPU_FUSED_ATTN=1, tracer off and then on, must
+    launch the same kernels as often (attention above 0) and give
+    bit-identical embeddings, slab rows and BM25 hits; the traced pass's
+    stage totals; the tracer's host ns a span off and on."""
+    from rust_local_rag_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory(prefix="rag_port_smoke_tracing_") as tmp, \
+            env_set("RAG_TPU_FUSED_ATTN", "1"):
+        profiling.disable()
+        plain = tracing_ingest(dev, seed, os.path.join(tmp, "off"))
+        profiling.reset()
+        profiling.enable()
+        try:
+            traced = tracing_ingest(dev, seed, os.path.join(tmp, "on"))
+            totals = profiling.snapshot()
+        finally:
+            profiling.disable()
+            profiling.reset()
+    chunks = sum(TRACING_DOCS)
+    stages = {name: {"ms_per_chunk": row["ns"] / 1e6 / chunks, "self_ms_per_chunk": row["self_ns"] / 1e6 / chunks,
+                     "calls": row["calls"], "items": row["items"]} for name, row in totals["spans"].items()}
+    out = {"chunks": chunks, "launches_off": plain[3], "launches_on": traced[3],
+           "embeddings_equal": bool(np.array_equal(plain[0], traced[0])),
+           "slab_equal": bool(torch.equal(plain[1], traced[1])), "bm25_equal": plain[2] == traced[2],
+           "stages": stages, "counters": totals["counters"],
+           "span_ns_off": tracer_ns_per_span(False), "span_ns_on": tracer_ns_per_span(True)}
+    log({"tracing": out, "card": card})
+    if (plain[3] != traced[3] or plain[3]["fused_attention"] <= 0 or not out["embeddings_equal"]
+            or not out["slab_equal"] or not out["bm25_equal"] or stages["store.add"]["items"] != chunks):
+        raise AssertionError(f"tracing: traced and untraced ingest differ: {out}")
+    return out
+
+
 def run_ceilings(card: str) -> dict:
     """The four host ceilings (CEILINGS), each `python -m` in a session of
     its own: exit 0, 0 errors, no child left in its session and its port
@@ -5217,6 +5313,8 @@ def main(argv=None) -> int:
         prof_out = run_engine_profiles(dev, card)
     with phase("ceilings", card, seconds):
         run_ceilings(card)
+    with phase("tracing", card, seconds):
+        tracing_out = run_tracing(dev, card, args.seed)
     log({"phase_seconds": seconds, "phase_total_s": sum(seconds.values()), "card": card})
     srv = result["server"]
     masked_by_path = {"hot": result["launches"], "bf16_wide": result["bf16_wide"]["launches"],
@@ -5237,7 +5335,8 @@ def main(argv=None) -> int:
                                "calibration": calib_out["launches"], "scale_check": scale_out["launches"],
                                "engine_profiles": prof_out["launches"],
                                "topk_profiles": {"fused_score_segmax": topk_prof["launches"]},
-                               "xla_studies": {"fused_score_segmax": xla_out["launches"]}},
+                               "xla_studies": {"fused_score_segmax": xla_out["launches"]},
+                               "tracing": tracing_out["launches_on"]},
          "card": card})
     bd, lx, tk = result["breakdown"], result["lexical"], result["tokenizer"]
     log({"host_libs": [{

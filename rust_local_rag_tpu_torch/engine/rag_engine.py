@@ -93,6 +93,7 @@ from rust_local_rag_tpu_torch.ops.mmr import (
 from rust_local_rag_tpu_torch.ops.native_bm25 import make_lexical_index
 from rust_local_rag_tpu_torch.parallel import mesh as mesh_mod
 from rust_local_rag_tpu_torch.parallel import sharded_search
+from rust_local_rag_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -461,11 +462,16 @@ class RagEngine:
     def add_chunks(self, metas: List[ChunkMeta], embeddings: np.ndarray) -> List[int]:
         """Back half of add_document: normalised rows into the slab, texts
         into the lexical index at their slots."""
-        rows = np.stack([_normalize_vec(e) for e in embeddings])
-        slots = self.store.add_chunks(metas, rows)
-        for m, slot in zip(metas, slots):
-            self.lexical_index.add_chunk(m.id, m.text, slot)
-        return slots
+        n = len(metas)
+        with profiling.span("store.add", n):
+            with profiling.span("store.normalize", n):
+                rows = np.stack([_normalize_vec(e) for e in embeddings])
+            with profiling.span("store.slab", n):
+                slots = self.store.add_chunks(metas, rows)
+            with profiling.span("store.bm25", n):
+                for m, slot in zip(metas, slots):
+                    self.lexical_index.add_chunk(m.id, m.text, slot)
+            return slots
 
     def _remove_document_chunks(self, filename: str) -> None:
         removed = [m.id for _, m in self.store.iter_meta() if m.document_name == filename]
@@ -505,15 +511,16 @@ class RagEngine:
         encoder when it can leave them there, else from the host path
         (normalised, zero rows as padding), which a sharded engine always
         takes, as the JAX engine does."""
-        if self._mesh is None:
-            dev = self.embedding_service.get_query_embeddings_device(queries)
-            if dev is not None and dev.shape[0] == nq_pad:
-                return dev
-        host = self.embedding_service.get_query_embeddings(queries)
-        q_emb_p = np.zeros((nq_pad, host.shape[1]), dtype=np.float32)
-        for i in range(len(queries)):
-            q_emb_p[i] = _normalize_vec(host[i])
-        return torch.as_tensor(q_emb_p, device=self.device)
+        with profiling.span("engine.prep_queries", len(queries)):
+            if self._mesh is None:
+                dev = self.embedding_service.get_query_embeddings_device(queries)
+                if dev is not None and dev.shape[0] == nq_pad:
+                    return dev
+            host = self.embedding_service.get_query_embeddings(queries)
+            q_emb_p = np.zeros((nq_pad, host.shape[1]), dtype=np.float32)
+            for i in range(len(queries)):
+                q_emb_p[i] = _normalize_vec(host[i])
+            return torch.as_tensor(q_emb_p, device=self.device)
 
     def _prep_lexical(self, queries: List[str], top_k: int, nq_pad: int):
         """Top (top_k * 5) BM25 hits per query as (slot, score) rows."""
@@ -522,8 +529,9 @@ class RagEngine:
         lex_slots = np.full((nq_pad, lex_width), -1, dtype=np.int32)
         lex_vals = np.zeros((nq_pad, lex_width), dtype=np.float32)
         limit = min(lex_request, lex_width)
-        for qi, query in enumerate(queries):
-            self.lexical_index.score_slots_into(query, limit, lex_slots[qi], lex_vals[qi])
+        with profiling.span("engine.prep_lexical", len(queries)):
+            for qi, query in enumerate(queries):
+                self.lexical_index.score_slots_into(query, limit, lex_slots[qi], lex_vals[qi])
         return lex_slots, lex_vals
 
     def _f32(self, x: float) -> torch.Tensor:
@@ -542,29 +550,31 @@ class RagEngine:
         nq_pad = -(-max(_bucket_batch(len(queries)), dp) // dp) * dp
         q_emb = self._prep_queries(queries, nq_pad)
         lex_slots, lex_vals = self._prep_lexical(queries, top_k, nq_pad)
-        store = self.store
-        args = (
-            q_emb,
-            store.corpus(),
-            *((store.scales(), store.l1()) if store.quantized else ()),
-            store.valid_mask(),
-            torch.as_tensor(lex_slots, device=self.device),
-            torch.as_tensor(lex_vals, device=self.device),
-            self._f32(resolved.embedding),
-            self._f32(resolved.lexical),
-            _bucket_k(k),
-        )
-        if self._mesh is not None:
-            fn = (sharded_search.sharded_hybrid_topk_quantized if store.quantized
-                  else sharded_search.sharded_hybrid_topk)
-            out = fn(*args, mesh=self._mesh, corpus_axis=self._corpus_axes, with_sims=with_sims,
-                     data_axis=self._data_axis)
-            if not with_sims:
-                out = pack_topk(*out)
-        elif store.quantized:
-            out = hybrid_topk_quantized(*args, with_sims=True) if with_sims else hybrid_topk_quantized_packed(*args)
-        else:
-            out = hybrid_topk(*args, with_sims=True) if with_sims else hybrid_topk_packed(*args)
+        with profiling.span("engine.dispatch", len(queries)):
+            store = self.store
+            args = (
+                q_emb,
+                store.corpus(),
+                *((store.scales(), store.l1()) if store.quantized else ()),
+                store.valid_mask(),
+                torch.as_tensor(lex_slots, device=self.device),
+                torch.as_tensor(lex_vals, device=self.device),
+                self._f32(resolved.embedding),
+                self._f32(resolved.lexical),
+                _bucket_k(k),
+            )
+            if self._mesh is not None:
+                fn = (sharded_search.sharded_hybrid_topk_quantized if store.quantized
+                      else sharded_search.sharded_hybrid_topk)
+                out = fn(*args, mesh=self._mesh, corpus_axis=self._corpus_axes, with_sims=with_sims,
+                         data_axis=self._data_axis)
+                if not with_sims:
+                    out = pack_topk(*out)
+            elif store.quantized:
+                out = (hybrid_topk_quantized(*args, with_sims=True) if with_sims
+                       else hybrid_topk_quantized_packed(*args))
+            else:
+                out = hybrid_topk(*args, with_sims=True) if with_sims else hybrid_topk_packed(*args)
         return out, q_emb, lex_slots, lex_vals
 
     def search_batch(
@@ -610,13 +620,15 @@ class RagEngine:
         need_rows = min(top_k, initial_k) if head_only else initial_k
         sims_b = flags = None
         if collect_sims:
-            host = [x[:nq].cpu().numpy() for x in out]
+            with profiling.span("engine.fetch", nq):
+                host = [x[:nq].cpu().numpy() for x in out]
             sims_b = host.pop()
             vals_b, emb_b, lex_b, idx_b = (x[:, :initial_k] for x in host[:4])
             if len(host) > 4:
                 flags = host[4]
         else:
-            arr = out.cpu().numpy()
+            with profiling.span("engine.fetch", nq):
+                arr = out.cpu().numpy()
             vals_b, emb_b, lex_b, idx_b = unpack_topk(arr, nq, initial_k)
             if arr.shape[1] > 4:
                 flags = arr[:nq, 4, 0] > 0
@@ -801,7 +813,7 @@ class RagEngine:
     def _rerank_flat(self, queries: List[str], flat_inputs, nq: int) -> List[List[RerankedResult]]:
         """Score every (query, candidate) pair in one forward; regroup and
         sort each query's results by relevance (reranker.rs:261-266)."""
-        prompts = [self.reranker.build_prompt(queries[qi], cand) for qi, cand in flat_inputs]
+        prompts = self.reranker.build_prompts(queries, flat_inputs)
         scored = self.reranker.score_prompts(prompts)
         grouped: List[List[RerankedResult]] = [[] for _ in range(nq)]
         for (qi, cand), (s, y, n) in zip(flat_inputs, scored):
@@ -882,30 +894,35 @@ class RagEngine:
         if diversity_factor == 0.0:
             return self.search_batch(queries, top_k, weights, **kw)
         pool = max(top_k * 3, top_k + 10)
+        nq = len(queries)
         if self._device_mmr:
             pooled = self.search_batch(queries, pool, weights, **kw)
-            return [self._mmr_one(results, top_k, diversity_factor) for results in pooled]
+            with profiling.span("engine.mmr", nq):
+                return [self._mmr_one(results, top_k, diversity_factor) for results in pooled]
         env = os.environ.get("RAG_TPU_BATCH_DEVICE_MMR")
         if env is not None:
             batch_device = env not in ("", "0", "false")
         else:
-            batch_device = len(queries) >= 8
+            batch_device = nq >= 8
         if batch_device:
-            return self._mmr_many(self.search_batch(queries, pool, weights, **kw), top_k, diversity_factor)
+            pooled = self.search_batch(queries, pool, weights, **kw)
+            with profiling.span("engine.mmr", nq):
+                return self._mmr_many(pooled, top_k, diversity_factor)
         pooled, sims_info = self.search_batch(queries, pool, weights, collect_sims=True, **kw)
         if sims_info is None:
             return pooled
         sims_b, rank_maps = sims_info
         out: List[List[SearchResult]] = []
-        for qi, results in enumerate(pooled):
-            results = [r for r in results if r.chunk_id in rank_maps[qi]]
-            if not results:
-                out.append([])
-                continue
-            ranks = np.asarray([rank_maps[qi][r.chunk_id] for r in results], dtype=np.int64)
-            rel = np.asarray([r.score for r in results], dtype=np.float32)
-            selected = mmr_select_host(sims_b[qi][np.ix_(ranks, ranks)], rel, top_k, diversity_factor)
-            out.append([results[i] for i in selected])
+        with profiling.span("engine.mmr", nq):
+            for qi, results in enumerate(pooled):
+                results = [r for r in results if r.chunk_id in rank_maps[qi]]
+                if not results:
+                    out.append([])
+                    continue
+                ranks = np.asarray([rank_maps[qi][r.chunk_id] for r in results], dtype=np.int64)
+                rel = np.asarray([r.score for r in results], dtype=np.float32)
+                selected = mmr_select_host(sims_b[qi][np.ix_(ranks, ranks)], rel, top_k, diversity_factor)
+                out.append([results[i] for i in selected])
         return out
 
     def _mmr_many(
@@ -1070,19 +1087,20 @@ class RagEngine:
             else self._rejection_cosine_floor
         )
         floor = max(thr, cosf, 0.0)
-        out = hybrid_topk_packed_mmr(
-            q_emb,
-            self.store.corpus(),
-            self.store.valid_mask(),
-            torch.as_tensor(lex_slots, device=self.device),
-            torch.as_tensor(lex_vals, device=self.device),
-            self._f32(resolved.embedding),
-            self._f32(resolved.lexical),
-            diversity_factor,
-            floor,
-            pool,
-            _bucket_k(k),
-        )
+        with profiling.span("engine.dispatch", len(queries)):
+            out = hybrid_topk_packed_mmr(
+                q_emb,
+                self.store.corpus(),
+                self.store.valid_mask(),
+                torch.as_tensor(lex_slots, device=self.device),
+                torch.as_tensor(lex_vals, device=self.device),
+                self._f32(resolved.embedding),
+                self._f32(resolved.lexical),
+                diversity_factor,
+                floor,
+                pool,
+                _bucket_k(k),
+            )
         unseen, um_a, um_b = self._unseen_gate(queries, rejection_unseen_mass, rejection_unseen_cos)
         return PendingSearch(
             out=out, nq=len(queries), k=k, floor=floor,
@@ -1096,7 +1114,8 @@ class RagEngine:
         lane's certificate plane is read here and failing queries
         escalate (_int8_escalate); the joint unseen-term gate invalidates
         rejected rows."""
-        arr = pending.out.cpu().numpy()
+        with profiling.span("engine.fetch", pending.nq):
+            arr = pending.out.cpu().numpy()
         vals, emb, lex, idx = unpack_topk(arr, pending.nq, pending.k)
         if arr.shape[1] > 4:
             flags = arr[: pending.nq, 4, 0] > 0
@@ -1187,9 +1206,8 @@ class RagEngine:
             if rejection_query_floor is not None
             else self._rejection_query_floor
         )
-        flat_qi: List[int] = []
         flat_rank: List[int] = []
-        prompts: List[str] = []
+        pairs: List[tuple] = []
         finite = np.isfinite(col.vals[:nq])
         for qi in range(nq):
             for rank in range(col.slots.shape[1]):
@@ -1197,7 +1215,7 @@ class RagEngine:
                 if slot < 0 or not finite[qi, rank]:
                     continue
                 m = self.store.meta_for_slot(slot)
-                prompts.append(self.reranker.build_prompt(queries[qi], RerankerCandidate(
+                pairs.append((qi, RerankerCandidate(
                     chunk_id=m.id,
                     document=m.document_name,
                     text=m.text,
@@ -1205,12 +1223,12 @@ class RagEngine:
                     section=m.section,
                     initial_score=float(col.vals[qi, rank]),
                 )))
-                flat_qi.append(qi)
                 flat_rank.append(rank)
+        prompts = self.reranker.build_prompts(queries, pairs)
         return PendingJudged(
             col=col,
             handle=self.reranker.dispatch_prompts(prompts),
-            flat_qi=np.asarray(flat_qi, dtype=np.int64),
+            flat_qi=np.asarray([qi for qi, _ in pairs], dtype=np.int64),
             flat_rank=np.asarray(flat_rank, dtype=np.int64),
             nq=nq,
             thr=max(thr, 0.0),

@@ -33,6 +33,7 @@ from rust_local_rag_tpu_torch.config import (
     get_batch_timeout_s,
     get_embedding_model,
 )
+from rust_local_rag_tpu_torch.utils import profiling
 from rust_local_rag_tpu_torch.utils.lru import LruCache
 
 logger = logging.getLogger(__name__)
@@ -74,15 +75,35 @@ class EmbeddingService:
             self._executor = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="embed-batch"
             )
-        fut = self._executor.submit(fn)
+        tracer = profiling.TRACER
+        parent = tracer.current()
+        marks: List[int] = []
+
+        def traced():
+            # the worker's spans are the caller's children; the hand-off
+            # (submit -> the worker starts, the worker ends -> the caller
+            # resumes) is the caller's wait less the worker's run
+            marks.append(tracer.clock())
+            try:
+                with tracer.adopt(parent):
+                    return fn()
+            finally:
+                marks.append(tracer.clock())
+
+        if parent is not None:
+            t0 = tracer.clock()
+        fut = self._executor.submit(fn if parent is None else traced)
         try:
-            return fut.result(timeout=timeout_s)
+            out = fut.result(timeout=timeout_s)
         except concurrent.futures.TimeoutError:
             self._executor.shutdown(wait=False, cancel_futures=True)
             self._executor = None
             raise RuntimeError(
                 f"Embedding batch timed out after {timeout_s:.0f}s"
             ) from None
+        if parent is not None:
+            tracer.interval("embed.handoff", t0, tracer.clock() - (marks[1] - marks[0]))
+        return out
 
     def close(self) -> None:
         if self._executor is not None:
@@ -160,32 +181,33 @@ class EmbeddingService:
         (batch_idx1, total_batches, total_chunks, chunks_in_batch)."""
         if not texts:
             return np.zeros((0, self.dim), dtype=np.float32)
-        bs = batch_size if batch_size is not None else get_batch_size()
-        cooldown = cooldown_ms if cooldown_ms is not None else get_batch_cooldown_ms()
-        timeout_s = get_batch_timeout_s()
-        total = len(texts)
-        total_batches = -(-total // bs)
-        order = sorted(range(total), key=lambda i: len(texts[i]))
+        with profiling.span("embed.batches", len(texts)):
+            bs = batch_size if batch_size is not None else get_batch_size()
+            cooldown = cooldown_ms if cooldown_ms is not None else get_batch_cooldown_ms()
+            timeout_s = get_batch_timeout_s()
+            total = len(texts)
+            total_batches = -(-total // bs)
+            order = sorted(range(total), key=lambda i: len(texts[i]))
 
-        out = np.zeros((total, self.dim), dtype=np.float32)
-        for bi in range(total_batches):
-            lo, hi = bi * bs, min((bi + 1) * bs, total)
-            idxs = order[lo:hi]
-            batch_texts = [texts[i] for i in idxs]
-            batch = self._encode_with_timeout(
-                lambda bt=batch_texts: self.embed_texts(bt), timeout_s
-            )
-            if batch.shape[0] != hi - lo:
-                raise RuntimeError(
-                    f"Batch {bi + 1}/{total_batches}: received "
-                    f"{batch.shape[0]} embeddings for {hi - lo} chunks"
+            out = np.zeros((total, self.dim), dtype=np.float32)
+            for bi in range(total_batches):
+                lo, hi = bi * bs, min((bi + 1) * bs, total)
+                idxs = order[lo:hi]
+                batch_texts = [texts[i] for i in idxs]
+                batch = self._encode_with_timeout(
+                    lambda bt=batch_texts: self.embed_texts(bt), timeout_s
                 )
-            out[np.asarray(idxs, dtype=np.int64)] = batch
-            if batch_callback is not None:
-                batch_callback(bi + 1, total_batches, total, hi - lo)
-            if bi + 1 < total_batches and cooldown > 0:
-                time.sleep(cooldown / 1000.0)
-        return out
+                if batch.shape[0] != hi - lo:
+                    raise RuntimeError(
+                        f"Batch {bi + 1}/{total_batches}: received "
+                        f"{batch.shape[0]} embeddings for {hi - lo} chunks"
+                    )
+                out[np.asarray(idxs, dtype=np.int64)] = batch
+                if batch_callback is not None:
+                    batch_callback(bi + 1, total_batches, total, hi - lo)
+                if bi + 1 < total_batches and cooldown > 0:
+                    time.sleep(cooldown / 1000.0)
+            return out
 
 
 def build_default_service(device="cuda", model_name: Optional[str] = None) -> EmbeddingService:

@@ -37,6 +37,7 @@ from rust_local_rag_tpu_torch.device import resolve_device
 from rust_local_rag_tpu_torch.models.checkpoint import read_safetensors
 from rust_local_rag_tpu_torch.models.tokenizer import bucket_batch, load_tokenizer
 from rust_local_rag_tpu_torch.ops.attention import fused_attention, use_fused_attention
+from rust_local_rag_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -301,16 +302,21 @@ class TransformerEncoderModel:
         return self._model_name
 
     def _forward_padded(self, texts: Sequence[str]) -> torch.Tensor:
-        """-> [bucket_batch(n), out_dim] f32 on the device."""
-        ids, mask = self.tokenizer.encode_batch(texts)
-        n = ids.shape[0]
-        nb = bucket_batch(n)
-        if nb > n:
-            pad = np.zeros((nb - n, ids.shape[1]), dtype=ids.dtype)
-            ids = np.concatenate([ids, pad], axis=0)
-            mask = np.concatenate([mask, np.zeros_like(pad)], axis=0)
-            mask[n:, 0] = 1  # one valid token so pooling stays finite
-        with torch.inference_mode():
+        """-> [bucket_batch(n), out_dim] f32 on the device (the forward
+        enqueued, not waited for)."""
+        n = len(texts)
+        with profiling.span("encoder.tokenize", n):
+            ids, mask = self.tokenizer.encode_batch(texts)
+            nb = bucket_batch(n)
+            if nb > n:
+                pad = np.zeros((nb - n, ids.shape[1]), dtype=ids.dtype)
+                ids = np.concatenate([ids, pad], axis=0)
+                mask = np.concatenate([mask, np.zeros_like(pad)], axis=0)
+                mask[n:, 0] = 1  # one valid token so pooling stays finite
+        if profiling.TRACER.on:
+            profiling.count("encoder.tokens_valid", int(mask[:n].sum()))
+            profiling.count("encoder.tokens_computed", int(mask.size))
+        with profiling.span("encoder.forward", n), torch.inference_mode():
             return self.encoder(
                 torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device),
@@ -323,7 +329,9 @@ class TransformerEncoderModel:
             return np.zeros((0, self.cfg.out_dim), dtype=np.float32)
         prefix = self._doc_prefix if _prefix is None else _prefix
         texts = [prefix + t for t in texts] if prefix else list(texts)
-        return self._forward_padded(texts)[: len(texts)].cpu().numpy()
+        out = self._forward_padded(texts)[: len(texts)]
+        with profiling.span("encoder.readback", len(texts)):
+            return out.cpu().numpy()
 
     def encode_queries(self, texts: Sequence[str]) -> np.ndarray:
         return self.encode(texts, _prefix=self._query_prefix)

@@ -29,6 +29,7 @@ import torch
 from rust_local_rag_tpu_torch.config import get_prompts_dir, get_rerank_model
 from rust_local_rag_tpu_torch.device import resolve_device
 from rust_local_rag_tpu_torch.models.reranker import FakeReranker, TransformerReranker
+from rust_local_rag_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -122,16 +123,24 @@ class RerankerService:
             .replace("{text}", candidate.text.strip())
         )
 
+    def build_prompts(self, queries: Sequence[str], pairs) -> List[str]:
+        """The prompt of each (query index, candidate) pair, for a batch of
+        `queries`."""
+        with profiling.span("judge.prompts", len(queries)):
+            return [self.build_prompt(queries[qi], c) for qi, c in pairs]
+
     def score_prompts(self, prompts: Sequence[str]):
         """[(score, yes_lp, no_lp)] for many queries' prompts in one pass."""
-        return self._model.score_prompts(list(prompts))
+        with profiling.span("judge.forward", len(prompts)):
+            return self._model.score_prompts(list(prompts))
 
     def dispatch_prompts(self, prompts: Sequence[str]):
         """Queue the forward without fetching it; models without the split
         score here and the handle is the finished result."""
-        if hasattr(self._model, "dispatch_prompts"):
-            return self._model.dispatch_prompts(list(prompts))
-        return self._model.score_prompts(list(prompts))
+        with profiling.span("judge.forward", len(prompts)):
+            if hasattr(self._model, "dispatch_prompts"):
+                return self._model.dispatch_prompts(list(prompts))
+            return self._model.score_prompts(list(prompts))
 
     def fetch_prompts(self, handle):
         if hasattr(self._model, "fetch_prompts"):
@@ -143,11 +152,9 @@ class RerankerService:
         initial scores (counted in ``fallbacks``); sort by relevance."""
         if not candidates:
             return []
-        t0 = time.perf_counter()
-        prompts = [self.build_prompt(query, c) for c in candidates]
-        t_build = time.perf_counter()
+        prompts = self.build_prompts([query], [(0, c) for c in candidates])
         try:
-            scored = self._model.score_prompts(prompts)
+            scored = self.score_prompts(prompts)
         except Exception as e:  # noqa: BLE001 - the reference's contract: degrade to initial scores
             logger.warning("Reranker scoring failed, falling back to initial scores: %s", e)
             with self._fallback_lock:
@@ -158,10 +165,6 @@ class RerankerService:
                 RerankedResult(chunk_id=c.chunk_id, relevance=float(s), yes_logprob=y, no_logprob=n)
                 for c, (s, y, n) in zip(candidates, scored)
             ]
-            logger.debug(
-                "rerank phases: build_prompts=%.1fms score=%.1fms (%d candidates)",
-                (t_build - t0) * 1000.0, (time.perf_counter() - t_build) * 1000.0, len(candidates),
-            )
         results.sort(key=lambda r: -r.relevance)
         return results
 

@@ -29,6 +29,7 @@ import numpy as np
 
 from rust_local_rag_tpu_torch.kernels import build
 from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex, tokenize
+from rust_local_rag_tpu_torch.utils import profiling
 
 
 def _joined(text: str) -> bytes:
@@ -165,18 +166,35 @@ class NativeLexicalIndex:
             return 0
         ascii_query = query.isascii()
         data = query.encode("ascii") if ascii_query else _joined(query)
-        with self._lock:
+        self._acquire()
+        try:
             n = min(self._score_into_scratch(data, not ascii_query, limit), len(out_slots))
             out_slots[:n] = self._scratch_slots[:n]
             out_vals[:n] = self._scratch_vals[:n]
+        finally:
+            self._lock.release()
         return n
 
     def unseen_mass(self, query: str) -> float:
         """The share of the query's idf weight carried by terms no indexed
         chunk holds (ops/bm25.LexicalIndex.unseen_mass, computed in C++)."""
         data = _joined(query)
-        with self._lock:
+        self._acquire()
+        try:
             return float(self._lib.bm25_unseen_mass(self._h, data, len(data)))
+        finally:
+            self._lock.release()
+
+    def _acquire(self) -> None:
+        """Take the index's lock on a query's path; while the tracer is on,
+        the wait is recorded as bm25.lock_wait."""
+        tracer = profiling.TRACER
+        if not tracer.on:
+            self._lock.acquire()
+            return
+        t0 = tracer.clock()
+        self._lock.acquire()
+        tracer.interval("bm25.lock_wait", t0, tracer.clock())
 
     def compile_all(self) -> int:
         """Build every term's read-optimised posting snapshot up front, so no

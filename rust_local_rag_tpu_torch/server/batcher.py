@@ -40,6 +40,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from rust_local_rag_tpu_torch.config import QueryWeights
+from rust_local_rag_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +80,8 @@ class _Item:
     rejection_unseen_mass: Optional[float]
     rejection_unseen_cos: Optional[float]
     rejection_unseen_judge: Optional[float]
+    request: Optional[int] = None  # the server's request id
+    t_submit: Optional[int] = None  # the tracer's clock at submit, while it is on
 
 
 class SearchBatcher:
@@ -147,12 +150,15 @@ class SearchBatcher:
         want_payload: bool = False,
         afuture: Optional[object] = None,
         loop: Optional[object] = None,
+        request: Optional[int] = None,
     ) -> object:
         """Enqueue one search; it resolves to a List[SearchResult], or to
         response-body bytes when want_payload and the batch takes the hot,
         MMR hot or judged lane. Returns a new concurrent Future, or, for an
         event-loop caller, `afuture` (an asyncio future of `loop`), which
-        the batcher resolves with one call_soon_threadsafe per batch."""
+        the batcher resolves with one call_soon_threadsafe per batch.
+        `request` (the server's request id) names the request in its batch's
+        span."""
         diversity = round(float(diversity), 6)
         key = (
             top_k,
@@ -181,6 +187,8 @@ class SearchBatcher:
             rejection_unseen_mass=rejection_unseen_mass,
             rejection_unseen_cos=rejection_unseen_cos,
             rejection_unseen_judge=rejection_unseen_judge,
+            request=request,
+            t_submit=profiling.TRACER.clock() if profiling.TRACER.on else None,
         )
         with self._buf_cv:
             self._buf.append(item)
@@ -299,7 +307,10 @@ class SearchBatcher:
 
     def _payloads(self, batch: List[_Item], serialize) -> Optional[list]:
         """serialize() -> one body per query when a request asked for bytes."""
-        return serialize() if any(it.want_payload for it in batch) else None
+        if not any(it.want_payload for it in batch):
+            return None
+        with profiling.span("batch.serialize", len(batch)):
+            return serialize()
 
     def _answer(self, batch: List[_Item], payloads: Optional[list], result) -> None:
         """Complete the batch: bytes where asked for and serialized, else
@@ -312,6 +323,12 @@ class SearchBatcher:
     # ----- execution -----
 
     def _run_one(self, batch: List[_Item]) -> None:
+        tracer = profiling.TRACER
+        if tracer.on:
+            t = tracer.clock()
+            for it in batch:
+                if it.t_submit is not None:
+                    tracer.interval("batch.queue_wait", it.t_submit, t)
         try:
             self._execute(batch)
         except Exception as e:  # noqa: BLE001 - delivered to every caller
@@ -345,13 +362,18 @@ class SearchBatcher:
     def _execute(self, batch: List[_Item]) -> None:
         top_k = batch[0].key[0]
         if self._hot_lane(batch):
-            self._execute_hot(batch, top_k)
+            lane, run = "batch.hot", self._execute_hot
         elif self._mmr_hot_lane(batch):
-            self._execute_mmr_hot(batch, top_k)
+            lane, run = "batch.mmr_hot", self._execute_mmr_hot
         elif self._judge_lane(batch):
-            self._execute_judged(batch, top_k)
+            lane, run = "batch.judged", self._execute_judged
         else:
-            self._execute_general(batch, top_k)
+            lane, run = "batch.general", self._execute_general
+        requests = None
+        if profiling.active():  # the ids of the server's requests in the batch, if any
+            requests = [it.request for it in batch if it.request is not None] or None
+        with profiling.span(lane, len(batch), request=requests):
+            run(batch, top_k)
 
     def _execute_hot(self, batch: List[_Item], top_k: int) -> None:
         it0 = batch[0]

@@ -25,6 +25,7 @@ the port has no aiohttp, so the same protocol serves the rest too).
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import logging
 import re
@@ -41,6 +42,7 @@ from rust_local_rag_tpu_torch.server.http_api import (
     parse_search_params,
     text_response,
 )
+from rust_local_rag_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -50,6 +52,7 @@ MAX_BODY = 64 * 1024 * 1024  # the JAX server's aiohttp client_max_size
 _TOKEN = re.compile(r"^[!#$%&'*+.^_`|~0-9A-Za-z-]+$")
 _HEX = re.compile(rb"^[0-9A-Fa-f]+$")
 _CONTINUE = b"HTTP/1.1 100 Continue\r\n\r\n"
+_REQUEST_IDS = itertools.count(1)  # the request id of each request the process reads
 
 
 class _BadRequest(Exception):
@@ -89,13 +92,26 @@ def _parse_chunked(buf: bytearray, pos: int):
         pos += size + 2
 
 
+def _search_params(body: bytes):
+    """(params, None) of a /search body, or (None, the 400 text)."""
+    try:
+        payload = json.loads(body)
+    except ValueError:  # JSONDecodeError and UnicodeDecodeError
+        payload = None
+    if not isinstance(payload, dict):
+        return None, "invalid JSON"
+    return parse_search_params(payload)
+
+
 class _Slot:
     """One in-order response slot of a connection."""
 
-    __slots__ = ("payload", "close_after", "version", "head_only", "stream", "chunked", "pumping")
+    __slots__ = ("payload", "close_after", "version", "head_only", "stream", "chunked", "pumping", "request")
 
-    def __init__(self, version: str = "HTTP/1.1", close_after: bool = False, head_only: bool = False):
+    def __init__(self, version: str = "HTTP/1.1", close_after: bool = False, head_only: bool = False,
+                 request: Optional[int] = None):
         self.payload: Optional[bytes] = None  # the response head (+ body)
+        self.request = request  # the request id; None for an interim or error slot
         self.close_after = close_after
         self.version = version
         self.head_only = head_only
@@ -120,7 +136,8 @@ class _SlotFuture:
     def set_result(self, res) -> None:
         if not isinstance(res, (bytes, bytearray)):
             # a lane that answers objects: the same JSON as the bytes'
-            res = json.dumps({"results": [r.to_dict() for r in res]}).encode()
+            with profiling.span("http.serialize", request=self.slot.request):
+                res = json.dumps({"results": [r.to_dict() for r in res]}).encode()
         self.proto._finish(self.slot, Response(200, bytes(res), "application/json"))
 
     def set_exception(self, exc: BaseException) -> None:
@@ -230,7 +247,8 @@ class HttpProtocol(asyncio.Protocol):
             self._dispatch(method, target, version, headers, body, close_after)
 
     def _dispatch(self, method, target, version, headers, body: bytes, close_after: bool) -> None:
-        slot = _Slot("HTTP/1.0" if version == "HTTP/1.0" else "HTTP/1.1", close_after, method == "HEAD")
+        slot = _Slot("HTTP/1.0" if version == "HTTP/1.0" else "HTTP/1.1", close_after, method == "HEAD",
+                     next(_REQUEST_IDS))
         self._pending.append(slot)
         path = unquote(target.split("?", 1)[0])
         handler, err, info = self._app.resolve(method, path)
@@ -256,14 +274,8 @@ class HttpProtocol(asyncio.Protocol):
 
     def _search(self, slot: _Slot, body: bytes) -> None:
         """POST /search, inline (the JAX fast path's _handle)."""
-        try:
-            payload = json.loads(body)
-        except ValueError:  # JSONDecodeError and UnicodeDecodeError
-            payload = None
-        if not isinstance(payload, dict):
-            self._finish(slot, text_response(400, "invalid JSON"))
-            return
-        params, err = parse_search_params(payload)
+        with profiling.span("http.parse", request=slot.request):
+            params, err = _search_params(body)
         if err is not None:
             self._finish(slot, text_response(400, err))
             return
@@ -283,6 +295,7 @@ class HttpProtocol(asyncio.Protocol):
                 want_payload=True,
                 afuture=_SlotFuture(self, slot),
                 loop=self._loop,
+                request=slot.request,
             )
         except Exception as e:  # noqa: BLE001 - answered 500, as the JAX server does
             _SlotFuture(self, slot).set_exception(e)
@@ -290,26 +303,27 @@ class HttpProtocol(asyncio.Protocol):
     # ----- responses (on the loop) -----
 
     def _finish(self, slot: _Slot, resp: Response) -> None:
-        reason = HTTPStatus(resp.status).phrase
-        lines = [f"{slot.version} {resp.status} {reason}"]
-        if resp.content_type:
-            lines.append(f"Content-Type: {resp.content_type}")
-        lines.extend(f"{k}: {v}" for k, v in resp.headers.items())
-        if resp.stream is None:
-            lines.append(f"Content-Length: {len(resp.body)}")
-        elif slot.version == "HTTP/1.1" and not slot.head_only:
-            lines.append("Transfer-Encoding: chunked")
-            slot.chunked = True
-        else:
-            slot.close_after = slot.close_after or not slot.head_only
-        if slot.close_after:
-            lines.append("Connection: close")
-        head = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-        slot.stream = resp.stream
-        slot.payload = head if slot.head_only or resp.stream is not None else head + resp.body
-        if self._closed and slot.stream is not None:
-            slot.stream.close()
-        self._drain()
+        with profiling.span("http.write", request=slot.request):
+            reason = HTTPStatus(resp.status).phrase
+            lines = [f"{slot.version} {resp.status} {reason}"]
+            if resp.content_type:
+                lines.append(f"Content-Type: {resp.content_type}")
+            lines.extend(f"{k}: {v}" for k, v in resp.headers.items())
+            if resp.stream is None:
+                lines.append(f"Content-Length: {len(resp.body)}")
+            elif slot.version == "HTTP/1.1" and not slot.head_only:
+                lines.append("Transfer-Encoding: chunked")
+                slot.chunked = True
+            else:
+                slot.close_after = slot.close_after or not slot.head_only
+            if slot.close_after:
+                lines.append("Connection: close")
+            head = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+            slot.stream = resp.stream
+            slot.payload = head if slot.head_only or resp.stream is not None else head + resp.body
+            if self._closed and slot.stream is not None:
+                slot.stream.close()
+            self._drain()
 
     def _drain(self) -> None:
         if self._closed:

@@ -17,7 +17,26 @@ JAX server starts on RAG_TPU_PROFILE_PORT so that a live server's device
 trace can be captured. `CaptureServer` keeps that capability: a loopback
 listener on that port that answers `POST /capture` with
 {"duration_ms": N, "log_dir": DIR} by taking one `device_trace` window of
-N ms over the running process, and replies with the trace's path.
+N ms over the running process, and replies with the trace's path;
+`GET /totals` answers the tracer's `snapshot()`.
+
+The tracer (`TRACER`, with `span`, `interval`, `count`, `snapshot`,
+`reset`, `enable` and `disable` bound to it) names the program's own
+stages. Off by default (RAG_TPU_TRACE=1 at start-up or `enable()` turns
+it on); while off and while no torch.profiler records, `span` checks two
+flags and returns a shared no-op: no clock, no lock. While a profiler
+records, every span enters `torch.profiler.record_function(name)`, on or
+off, so a `device_trace` window and a benchmark's profiled window hold
+the stages as user_annotation events beside the kernels, and `summarize`
+names idle gaps after them. Inside a `device_trace` window a span's
+request ids also reach the trace file: the range is named
+"<name>@<ids>" and `device_trace` writes the file back with the name
+alone and the ids as the event's "request" arg (the Chrome export drops
+`record_function`'s own args string). While on, and no profiler
+records, the tracer keeps for each span name its calls, host
+nanoseconds, items and self nanoseconds (its time less what its child
+spans and intervals cover), and each counter's sum. Spans and intervals
+live at layer boundaries, never per row; none synchronises the device.
 """
 
 from __future__ import annotations
@@ -30,12 +49,16 @@ import time
 import uuid
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function")
+ANNOTATION_CATEGORIES = ("user_annotation", "gpu_user_annotation")
+REQUEST_TAG = "@"  # "<span name>@<request ids>": a range's name inside a device_trace window
 
 
 @dataclass
@@ -53,7 +76,8 @@ def device_trace(log_dir: str):
     activities over every thread of the process (a server's operations run
     on its batcher's and handlers' threads, not the caller's); on exit the
     Chrome trace is written into log_dir and its events are read back into
-    the yielded DeviceTrace."""
+    the yielded DeviceTrace. The spans' request ids are in the file as
+    their events' "request" arg."""
     from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
@@ -62,11 +86,32 @@ def device_trace(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     trace = DeviceTrace(os.path.join(log_dir, f"trace_{os.getpid()}_{uuid.uuid4().hex[:8]}.json"))
-    with profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
-        yield trace
+    TRACER.tag_requests += 1
+    try:
+        with profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            yield trace
+    finally:
+        TRACER.tag_requests -= 1
     prof.export_chrome_trace(trace.path)
     with open(trace.path, encoding="utf-8") as f:
-        trace.events = json.load(f).get("traceEvents", [])
+        data = json.load(f)
+    trace.events = data.get("traceEvents", [])
+    if _untag_requests(trace.events):
+        with open(trace.path, "w", encoding="utf-8") as f:
+            json.dump(data, f)
+
+
+def _untag_requests(events: List[dict]) -> int:
+    """Each range named "<name>@<ids>" renamed <name>, the ids as its
+    "request" arg; the number renamed."""
+    n = 0
+    for e in events:
+        name = e.get("name")
+        if isinstance(name, str) and REQUEST_TAG in name and e.get("cat") in ANNOTATION_CATEGORIES:
+            e["name"], ids = name.split(REQUEST_TAG, 1)
+            e.setdefault("args", {})["request"] = ids
+            n += 1
+    return n
 
 
 def _intervals(events, categories):
@@ -130,6 +175,191 @@ def summarize(events: List[dict], window: Optional[tuple] = None, top: int = 10,
     }
 
 
+class _Noop:
+    """The span of a tracer that is off: enters and leaves, and records
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Noop":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+NOOP = _Noop()
+
+
+def _recording() -> bool:
+    """A torch.profiler is recording (torch's own flag for fast checks)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Span:
+    """One open span: its place on the thread's stack, its profiler range
+    while one records, and the time its children cover."""
+
+    __slots__ = ("tracer", "name", "items", "request", "parent", "covered", "t0", "range", "keep")
+
+    def __init__(self, tracer: "Tracer", name: str, items: int, request) -> None:
+        self.tracer = tracer
+        self.name = name
+        self.items = items
+        self.request = request
+        self.covered = 0
+
+    def __enter__(self) -> "_Span":
+        tracer = self.tracer
+        stack = tracer._stack()
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self.range = None
+        if _recording():
+            name, request = self.name, self.request
+            if request is not None and tracer.tag_requests:
+                if not isinstance(request, (int, str)):
+                    request = ",".join(str(r) for r in request)
+                name = f"{name}{REQUEST_TAG}{request}"
+            self.range = record_function(name)
+            self.range.__enter__()
+        self.keep = tracer.on and self.range is None
+        self.t0 = tracer.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        tracer = self.tracer
+        ns = tracer.clock() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        tracer._stack().pop()
+        if self.parent is not None:
+            self.parent.covered += ns
+        if self.keep and not _recording():
+            tracer._add(self.name, ns, self.items, max(ns - self.covered, 0))
+
+
+class _Adopted:
+    """A caller's span on another thread's stack, as the parent of the
+    spans that thread opens on the caller's behalf."""
+
+    __slots__ = ("tracer", "span")
+
+    def __init__(self, tracer: "Tracer", span: _Span) -> None:
+        self.tracer = tracer
+        self.span = span
+
+    def __enter__(self) -> "_Adopted":
+        self.tracer._stack().append(self.span)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.tracer._stack().pop()
+
+
+class Tracer:
+    """Spans, intervals and counters of one process (module docstring).
+    `clock` gives integer nanoseconds (time.perf_counter_ns by default; a
+    test injects its own)."""
+
+    def __init__(self, clock: Callable[[], int] = time.perf_counter_ns, on: bool = False) -> None:
+        self.clock = clock
+        self.on = on
+        self._local = threading.local()
+        self._lock = threading.Lock()  # the batcher runs two batches at once
+        self._spans: Dict[str, List[int]] = {}   # name -> [calls, ns, items, self ns]
+        self._counts: Dict[str, int] = {}
+        self.tag_requests = 0  # device_trace windows open: spans name their ranges "<name>@<ids>"
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _add(self, name: str, ns: int, items: int, self_ns: int) -> None:
+        with self._lock:
+            row = self._spans.get(name)
+            if row is None:
+                row = self._spans[name] = [0, 0, 0, 0]
+            row[0] += 1
+            row[1] += ns
+            row[2] += items
+            row[3] += self_ns
+
+    def enable(self) -> None:
+        self.on = True
+
+    def disable(self) -> None:
+        self.on = False
+
+    def span(self, name: str, items: int = 1, request=None):
+        """A context manager around one stage at a layer boundary; `request`
+        is a request id or a sequence of them (a `device_trace` file's
+        "request" arg of the span's event)."""
+        if not (self.on or _autograd_profiler._is_profiler_enabled):
+            return NOOP
+        return _Span(self, name, items, request)
+
+    def active(self) -> bool:
+        """A span would do anything: the tracer is on or a profiler records."""
+        return self.on or _autograd_profiler._is_profiler_enabled
+
+    def current(self) -> Optional[_Span]:
+        """The innermost open span of this thread (None while off)."""
+        if not self.on:
+            return None
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def adopt(self, parent: Optional[_Span]):
+        """On a thread working for a caller: `parent` (the caller's
+        current()) becomes the parent of the spans opened inside."""
+        return NOOP if parent is None else _Adopted(self, parent)
+
+    def interval(self, name: str, t0: int, t1: int, items: int = 1) -> None:
+        """A wait measured across threads, t0 to t1 on `clock`: into the
+        totals only (no profiler range), and covered time of this thread's
+        open span."""
+        if not self.on or _recording():
+            return
+        ns = max(t1 - t0, 0)
+        stack = self._stack()
+        if stack:
+            stack[-1].covered += ns
+        self._add(name, ns, items, ns)
+
+    def count(self, name: str, n: int) -> None:
+        if not self.on or _recording():
+            return
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def snapshot(self) -> dict:
+        """{"spans": {name: {calls, ns, items, self_ns}}, "counters":
+        {name: sum}}, a copy."""
+        with self._lock:
+            return {"spans": {k: dict(zip(("calls", "ns", "items", "self_ns"), v)) for k, v in self._spans.items()},
+                    "counters": dict(self._counts)}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counts.clear()
+
+
+TRACE_ENV = "RAG_TPU_TRACE"
+TRACER = Tracer(on=os.environ.get(TRACE_ENV, "") not in ("", "0", "false"))
+span = TRACER.span
+active = TRACER.active
+interval = TRACER.interval
+count = TRACER.count
+snapshot = TRACER.snapshot
+reset = TRACER.reset
+enable = TRACER.enable
+disable = TRACER.disable
+
+
 @dataclass
 class StepStats:
     mean_ms: float
@@ -183,7 +413,9 @@ class CaptureServer:
     {"duration_ms": N, "log_dir": DIR} takes one device_trace window of N
     ms (at most MAX_MS) over the process and answers {"trace": path,
     "events": count, "duration_ms": N}; one window at a time (409 while
-    one is open). log_dir defaults to the directory the server was given."""
+    one is open). log_dir defaults to the directory the server was given.
+    GET /totals answers the tracer's totals: {"on": bool, "spans": ...,
+    "counters": ...} (`snapshot()`; empty while the tracer is off)."""
 
     MAX_MS = 600_000
 
@@ -203,6 +435,11 @@ class CaptureServer:
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
+
+            def do_GET(self):
+                if self.path != "/totals":
+                    return self._reply(404, {"error": f"no route {self.path}"})
+                return self._reply(200, {"on": TRACER.on, **TRACER.snapshot()})
 
             def do_POST(self):
                 if self.path != "/capture":
