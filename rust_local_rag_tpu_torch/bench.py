@@ -222,8 +222,8 @@ def ingest_lines(device: torch.device, batch: int, seq: int, n_docs: int, batche
             tc = time.perf_counter()
             metas = [ChunkMeta(id=f"c{total + i}", document_name="bench.pdf", text=f.text, chunk_index=total + i,
                                page_number=f.page_number, section=f.section) for i, f in enumerate(frags)]
-            for m, slot in zip(metas, store.add_chunks(metas, emb.cpu().numpy())):
-                lexical.add_chunk(m.id, m.text, slot)
+            slots = store.add_chunks(metas, emb.cpu().numpy())
+            lexical.add_chunks([m.id for m in metas], [m.text for m in metas], slots)
             t["store"] += time.perf_counter() - tc
 
         t0 = time.perf_counter()

@@ -469,8 +469,7 @@ class RagEngine:
             with profiling.span("store.slab", n):
                 slots = self.store.add_chunks(metas, rows)
             with profiling.span("store.bm25", n):
-                for m, slot in zip(metas, slots):
-                    self.lexical_index.add_chunk(m.id, m.text, slot)
+                self.lexical_index.add_chunks([m.id for m in metas], [m.text for m in metas], slots)
             return slots
 
     def _remove_document_chunks(self, filename: str) -> None:
@@ -483,9 +482,9 @@ class RagEngine:
         """Keep the lexical index and document hashes consistent with the
         store (rag_engine.rs:1375-1425)."""
         self.lexical_index.drop_stale(set(self.store.chunk_ids()))
-        for slot, meta in self.store.iter_meta():
-            if not self.lexical_index.contains(meta.id):
-                self.lexical_index.add_chunk(meta.id, meta.text, slot)
+        missing = [(slot, meta) for slot, meta in self.store.iter_meta() if not self.lexical_index.contains(meta.id)]
+        self.lexical_index.add_chunks([m.id for _, m in missing], [m.text for _, m in missing],
+                                      [slot for slot, _ in missing])
         valid_docs = {m.document_name for _, m in self.store.iter_meta()}
         for doc in [d for d in self.document_hashes if d not in valid_docs]:
             del self.document_hashes[doc]
@@ -1436,8 +1435,7 @@ class RagEngine:
                 self.store = self._empty_store(self.store.dim)
                 self.lexical_index.clear()
             slots = self.store.add_chunks(st.metas, st.embeddings)
-            for m, slot in zip(st.metas, slots):
-                self.lexical_index.add_chunk(m.id, m.text, slot)
+            self.lexical_index.add_chunks([m.id for m in st.metas], [m.text for m in st.metas], slots)
         self.document_hashes = dict(st.document_hashes)
         self._needs_reindex = st.needs_reindex or res.needs_reindex
         self.validate_index_sync()

@@ -87,7 +87,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "lexical": {
         "bm25_create": (_P, []),
         "bm25_destroy": (None, [_P]),
-        "bm25_add_tokens": (None, [_P, _I64, _S, _I64]),
+        "bm25_add_batch": (None, [_P, _P, _S, _P, _P, _I64, _P]),
         "bm25_remove_chunk": (None, [_P, _I64]),
         "bm25_contains": (_I32, [_P, _I64]),
         "bm25_num_docs": (_I64, [_P]),

@@ -1,6 +1,6 @@
 """BM25 lexical index — host-side inverted index, device-blendable output
-(copy of rust_local_rag_tpu/ops/bm25.py; the native C++ index of the JAX
-package is not part of this port yet).
+(copy of rust_local_rag_tpu/ops/bm25.py, with add_chunks and the tracer's
+text counter; the plain twin of the native index, ops/native_bm25).
 
 Mirrors the reference's LexicalIndex (rag_engine.rs:2083-2237) exactly:
   * tokenize: split on non-alphanumeric, keep tokens with >= 3 chars,
@@ -21,7 +21,9 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Iterable, List, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+
+from rust_local_rag_tpu_torch.utils import profiling
 
 
 # runs of str.isalnum() characters: \w is isalnum() plus "_" in Python's
@@ -77,7 +79,14 @@ class LexicalIndex:
         self._id_to_slot.clear()
         self._slots_aligned = True
 
+    def add_chunks(self, chunk_ids: Sequence[str], texts: Sequence[str],
+                   slots: Optional[Sequence[int]] = None) -> None:
+        """add_chunk for each text in turn (the native index's batch call)."""
+        for i, (cid, text) in enumerate(zip(chunk_ids, texts)):
+            self.add_chunk(cid, text, None if slots is None else slots[i])
+
     def add_chunk(self, chunk_id: str, text: str, slot: int = None) -> None:
+        profiling.count("bm25.texts_python", 1)
         if chunk_id in self.doc_terms:
             self.remove_chunk(chunk_id)
         if slot is None:

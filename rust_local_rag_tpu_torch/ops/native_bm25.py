@@ -1,11 +1,18 @@
 """The native C++ BM25 index of the port (port of
-rust_local_rag_tpu/ops/native_bm25.py over its own copy of the C++ source,
+rust_local_rag_tpu/ops/native_bm25.py over the port's own C++ source,
 csrc/lexical.cpp, built with g++ at first use by kernels/build.py).
 
 The index is keyed by integer slots (the ChunkStore slab slots); a thin
 adapter maps chunk-id strings to slots so it has the interface of the
 pure-Python ops/bm25.LexicalIndex, which stays as its plain twin. Scores
 are f32 sums of f64 terms where the Python index sums in f64.
+
+Writes: `add_chunks` indexes a batch of chunks in one native call under
+one hold of the lock. An ASCII text goes to the C++ tokeniser as it is
+(for ASCII its byte rule equals ops/bm25.tokenize); any other is
+tokenised here by ops/bm25.tokenize and sent joined. `add_chunk` is a
+batch of one. While the tracer is on, the counters bm25.texts_native and
+bm25.texts_python count the texts tokenised in C++ and in Python.
 
 Selection (make_lexical_index): RAG_TPU_NATIVE_BM25=0 selects the Python
 index; otherwise the library is built or the call raises. The JAX package
@@ -21,9 +28,11 @@ scratch buffers and id maps, are serialised by one lock per index.
 
 from __future__ import annotations
 
+import array
+import itertools
 import os
 import threading
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -33,12 +42,10 @@ from rust_local_rag_tpu_torch.utils import profiling
 
 
 def _joined(text: str) -> bytes:
-    """The pre-tokenised form bm25_add_tokens / bm25_score_tokens take:
+    """The pre-tokenised form bm25_add_batch / bm25_score_tokens take:
     the tokens of ops/bm25.tokenize joined by 0x01, UTF-8."""
     return "\x01".join(tokenize(text)).encode("utf-8")
 
-
-joined_tokens = _joined
 
 
 class NativeLexicalIndex:
@@ -103,20 +110,56 @@ class NativeLexicalIndex:
         return existing
 
     def add_chunk(self, chunk_id: str, text: str, slot: Optional[int] = None) -> None:
-        """Index text under chunk_id, tokenised host-side by ops/bm25.tokenize
-        (the C++ core only counts the tokens). A chunk whose text tokenises
-        to nothing is not indexed, and its id mapping is dropped again, as
-        the Python index keeps no entry for it."""
-        self.add_joined(chunk_id, _joined(text), slot)
+        """add_chunks of one chunk."""
+        self.add_chunks([chunk_id], [text], None if slot is None else [slot])
 
-    def add_joined(self, chunk_id: str, data: bytes, slot: Optional[int] = None) -> None:
-        """add_chunk for a text already tokenised by joined_tokens (a text
-        indexed into several indexes is tokenised once)."""
+    def add_chunks(self, chunk_ids: Sequence[str], texts: Sequence[str],
+                   slots: Optional[Sequence[int]] = None) -> None:
+        """Index texts[i] under chunk_ids[i] at slots[i] (auto-allocated
+        slots when slots is None), in order, as that many add_chunk calls
+        would: the slots are settled first (_slot_for), then one native
+        call adds every text. A chunk id seen twice in one call sends the
+        texts before it first, so its old slot is removed after they were
+        added. A chunk whose text tokenises to nothing is not indexed, and
+        its id mapping is dropped again, as the Python index keeps no entry
+        for it."""
+        n = len(chunk_ids)
+        is_ascii = [t.isascii() for t in texts]
+        native = sum(is_ascii)
+        profiling.count("bm25.texts_native", native)
+        profiling.count("bm25.texts_python", n - native)
+        if n == 0:
+            return
+        data = [t.encode("ascii") if a else _joined(t) for t, a in zip(texts, is_ascii)]
+        buf = b"".join(data)
+        offsets = array.array("q", itertools.accumulate(map(len, data), initial=0))
+        flags = array.array("B", [not a for a in is_ascii])
+        at = array.array("q", bytes(8 * n))
+        indexed = array.array("B", bytes(n))
         with self._lock:
-            s = self._slot_for(chunk_id, slot)
-            self._lib.bm25_add_tokens(self._h, s, data, len(data))
-            if not self._lib.bm25_contains(self._h, s):
-                self._slot_to_id.pop(self._id_to_slot.pop(chunk_id), None)
+            lo, seen = 0, set()
+            for i, cid in enumerate(chunk_ids):
+                if cid in seen:
+                    self._add_native(chunk_ids, buf, offsets, flags, at, indexed, lo, i)
+                    lo, seen = i, set()
+                seen.add(cid)
+                at[i] = self._slot_for(cid, None if slots is None else slots[i])
+            self._add_native(chunk_ids, buf, offsets, flags, at, indexed, lo, n)
+
+    def _add_native(self, chunk_ids, buf: bytes, offsets, flags, at, indexed, lo: int, hi: int) -> None:
+        """Texts lo..hi-1 of an add_chunks through bm25_add_batch (caller holds
+        the lock; offsets, flags, at and indexed are array.array buffers);
+        the ids of those that produced no tokens are unmapped."""
+        self._lib.bm25_add_batch(self._h, at.buffer_info()[0] + 8 * lo, buf, offsets.buffer_info()[0] + 8 * lo,
+                                 flags.buffer_info()[0] + lo, hi - lo, indexed.buffer_info()[0] + lo)
+        done = indexed.tobytes()
+        i = done.find(0, lo, hi)
+        while i >= 0:
+            cid, slot = chunk_ids[i], at[i]
+            if self._id_to_slot.get(cid) == slot:
+                del self._id_to_slot[cid]
+                self._slot_to_id.pop(slot, None)
+            i = done.find(0, i + 1, hi)
 
     def remove_chunk(self, chunk_id: str) -> None:
         with self._lock:

@@ -95,8 +95,7 @@ class FakeEngine:
         if mode == "bm25":
             self.lexical_index = make_lexical_index()
             t0 = time.monotonic()
-            for i, t in enumerate(texts):
-                self.lexical_index.add_chunk(f"c{i}", t, i)
+            self.lexical_index.add_chunks([f"c{i}" for i in range(len(texts))], texts, list(range(len(texts))))
             log(f"BM25 indexed {len(texts)} ({time.monotonic() - t0:.0f}s)")
             t0 = time.monotonic()
             log(f"{self.lexical_index.compile_all()} snapshots compiled ({time.monotonic() - t0:.0f}s)")

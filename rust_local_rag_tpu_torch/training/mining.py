@@ -277,8 +277,7 @@ def mine_junk_neighbors(
         from rust_local_rag_tpu_torch.ops.native_bm25 import make_lexical_index
 
         bm25 = make_lexical_index()
-        for i in pool:
-            bm25.add_chunk(str(i), paragraphs[i])
+        bm25.add_chunks([str(i) for i in pool], [paragraphs[i] for i in pool])
         for r, q in enumerate(junk):
             hits = bm25.score(q, n_bm25)
             for c, (cid, _) in enumerate(hits[:n_bm25]):

@@ -42,28 +42,25 @@ def bm25_neighbors(texts: Sequence[str], indexed: Sequence[int], crops: Sequence
     BM25 hits for crops[i] among the paragraphs `indexed` (indices into
     texts, added in that order), paragraph i itself left out.
 
-    Each worker thread builds its own index over the same paragraphs,
-    tokenised once, and scores its span of crops: a native index scores one
-    query at a time (it keeps its scratch per handle), and its C calls
-    release the GIL. The table does not depend on the thread count."""
+    Each worker thread builds its own index over the same paragraphs, in
+    one add_chunks call, and scores its span of crops: a native index
+    scores one query at a time (it keeps its scratch per handle), and its
+    C calls release the GIL. The table does not depend on the thread
+    count."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from rust_local_rag_tpu_torch.ops.native_bm25 import NativeLexicalIndex, joined_tokens, make_lexical_index
+    from rust_local_rag_tpu_torch.ops.native_bm25 import make_lexical_index
 
     n = len(crops)
     out = np.full((n, n_neighbors), -1, dtype=np.int32)
     threads = max(1, min(threads, os.cpu_count() or 1, n))
-    joined = [joined_tokens(texts[i]) for i in indexed]
+    ids = [str(i) for i in indexed]
+    paragraphs = [texts[i] for i in indexed]
 
     def mine(span):
         lo, hi = span
         bm25 = make_lexical_index()
-        if isinstance(bm25, NativeLexicalIndex):
-            for i, data in zip(indexed, joined):
-                bm25.add_joined(str(i), data)
-        else:
-            for i in indexed:
-                bm25.add_chunk(str(i), texts[i])
+        bm25.add_chunks(ids, paragraphs)
         for i in range(lo, hi):
             hits = bm25.score(crops[i], n_neighbors + 1)
             cands = [int(c) for c, _ in hits if int(c) != i]

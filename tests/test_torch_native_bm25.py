@@ -1,6 +1,7 @@
 """The port's native BM25 index (csrc/lexical.cpp through
 ops/native_bm25.NativeLexicalIndex) against the port's pure-Python index
-and both JAX indexes, over the same seeded chunks and slots.
+and both JAX indexes, over the same seeded chunks and slots, whether it
+is filled one chunk a call or in batches (add_chunks).
 
 Tolerances: native scores are f32 sums of f64 terms against the Python
 indexes' f64, so scores agree within rel 1e-5 (the bound the JAX package's
@@ -26,6 +27,7 @@ from rust_local_rag_tpu_torch.kernels import build
 from rust_local_rag_tpu_torch.models.embedding_service import EmbeddingService
 from rust_local_rag_tpu_torch.ops import native_bm25 as tnative
 from rust_local_rag_tpu_torch.ops.bm25 import LexicalIndex
+from rust_local_rag_tpu_torch.utils import profiling
 
 REL = 1e-5
 MASS_TOL = 1e-6
@@ -223,6 +225,155 @@ def test_concurrent_scoring_equals_sequential(texts):
     assert not any(th.is_alive() for th in threads) and not errors
     for t in range(8):
         assert got[t] == want, f"thread {t}"
+
+
+# the same edits, in order, for every way of filling an index: (chunk id,
+# text, slot) adds, with removals and a drop_stale between them. Slots are
+# reused inside one add (slot 10, and id n1 twice) and across adds (slots 3
+# and 6 after their chunks went); c5 is removed and added again.
+def _edits(texts):
+    return [
+        ("add", [(f"c{i}", t, i) for i, t in enumerate(texts)]),
+        ("remove", ["c5", "c6", "c7"]),
+        ("add", [("c5", texts[5], 5), ("n1", "pump valve w001 straße", 6), ("n2", "seal seal bearing Ωmega", 400),
+                 ("n1", "valve résumé gasket", 401), ("c10", "bearing pump pump", 10), ("n3", "-- !!", 402),
+                 ("n4", "naïve w002 w003 pump", 10), ("c11", texts[12], 11)]),
+        ("drop_stale", lambda ids: {c for c in ids if not c.startswith("c") or int(c[1:]) % 3}),
+        ("add", [("n5", "pump valve café seal w001", 3), ("c1", "bearing bearing naïve", 1), ("c2", "-- !!", 2),
+                 ("n2", "w004 w004 w005", 7)]),
+    ]
+
+
+class _Edited:
+    """An index taking _edits one at a time: adds one add_chunk a chunk
+    (batch None), else add_chunks in batches of `batch` (0: each add
+    whole). The Python index is keyed by chunk id alone, so for it the
+    chunk holding a reused slot is removed first, as the engine's store
+    does."""
+
+    def __init__(self, index, batch, slotted=True):
+        self.index, self.batch, self.slotted = index, batch, slotted
+        self.ids, self._held, self._where = set(), {}, {}
+        self._evict = isinstance(index, LexicalIndex) and slotted
+
+    def apply(self, op, arg):
+        index = self.index
+        if op == "remove":
+            for cid in arg:
+                index.remove_chunk(cid)
+            self.ids -= set(arg)
+            return
+        if op == "drop_stale":
+            self.ids = arg(self.ids)
+            index.drop_stale(self.ids)
+            return
+        self.ids |= {cid for cid, _, _ in arg}
+        if self.batch is None:
+            for cid, text, slot in arg:
+                prior = self._held.get(slot)
+                if self._evict and prior not in (None, cid) and self._where.get(prior) == slot:
+                    index.remove_chunk(prior)
+                self._held[slot], self._where[cid] = cid, slot
+                index.add_chunk(cid, text, slot if self.slotted else None)
+            return
+        step = self.batch or len(arg)
+        for lo in range(0, len(arg), step):
+            part = arg[lo:lo + step]
+            index.add_chunks([c for c, _, _ in part], [t for _, t, _ in part],
+                             [s for _, _, s in part] if self.slotted else None)
+
+
+def _rows(index, q):
+    slots = np.full(LIMIT, -1, dtype=np.int32)
+    vals = np.zeros(LIMIT, dtype=np.float32)
+    n = index.score_slots_into(q, LIMIT, slots, vals)
+    return slots[:n].tolist(), vals[:n].tolist()
+
+
+@pytest.mark.parametrize("fill", ["per_chunk", "batch_1", "batch_7", "batch_all", "auto_slots"])
+def test_batched_adds_equal_per_chunk(texts, fill):
+    """add_chunks in batches of 1, 7 or whole adds, over ASCII, non-ASCII
+    and token-less texts with slot reuse, removals and drop_stale: the
+    same hits, order and f32 scores as one add_chunk a chunk and as the
+    JAX package's native index (the same arithmetic), the Python index's
+    hits within REL, and the same df through compile_all's count."""
+    slotted = fill != "auto_slots"
+    batch = {"per_chunk": None, "batch_1": 1, "batch_7": 7, "batch_all": 0, "auto_slots": 7}[fill]
+    edited = [_Edited(tnative.NativeLexicalIndex(), batch, slotted), _Edited(tnative.NativeLexicalIndex(), None, slotted),
+              _Edited(_jax_native(), None, slotted), _Edited(LexicalIndex(), None, slotted)]
+    nat, one, jn, py = (e.index for e in edited)
+    for op, arg in _edits(texts):
+        for e in edited:
+            e.apply(op, arg)
+        assert nat.total_docs == one.total_docs == jn.total_docs == py.total_docs, op
+        for q in ("pump valve", "seal w001 straße", "bearing naïve"):
+            assert nat.score(q, 0) == one.score(q, 0) == jn.score(q, 0), (op, q)
+            if slotted:
+                assert _rows(nat, q) == _rows(one, q) == _rows(jn, q), (op, q)
+    ids = edited[0].ids
+    assert nat.slots_aligned == slotted
+    for cid in sorted(ids | {"c5", "c6", "c10", "n3", "c2", "c3", "c0"}):
+        assert nat.contains(cid) == jn.contains(cid) == py.contains(cid), cid
+    assert nat.compile_all() == jn.compile_all() == one.compile_all()
+    assert nat.compile_all() == 0
+    queries = _queries() + ["pump valve café seal w001", "bearing naïve", "seal Ωmega", "gasket résumé", "w004 w005"]
+    for q in queries:
+        got = nat.score(q, LIMIT)
+        assert got == one.score(q, LIMIT) == jn.score(q, LIMIT), q
+        _same_hits(got, py.score(q, LIMIT), q)
+        assert nat.score(q, 0) == jn.score(q, 0), q
+        assert nat.unseen_mass(q) == one.unseen_mass(q) == jn.unseen_mass(q), q
+        assert abs(nat.unseen_mass(q) - py.unseen_mass(q)) <= MASS_TOL, q
+        if slotted:
+            assert _rows(nat, q) == _rows(one, q), q
+            assert _rows(nat, q) == _rows(jn, q), q
+
+
+def test_removed_terms_leave_df(texts):
+    """A term whose every posting was removed is unseen again (df 0), and
+    the df of a term counts live postings only, after removals and slot
+    reuse, as in the JAX package's native index."""
+    nat = _filled(tnative.NativeLexicalIndex(), texts)
+    jn = _filled(_jax_native(), texts)
+    nat.add_chunks(["u1", "u2"], ["uniqueterm pump", "uniqueterm seal"], [500, 501])
+    jn.add_chunk("u1", "uniqueterm pump", 500)
+    jn.add_chunk("u2", "uniqueterm seal", 501)
+    assert nat.unseen_mass("uniqueterm") == jn.unseen_mass("uniqueterm") == 0.0
+    nat.remove_chunk("u1")
+    nat.add_chunks(["u3"], ["other words"], [501])  # slot 501 reused: u2 goes
+    jn.remove_chunk("u1")
+    jn.add_chunk("u3", "other words", 501)
+    assert nat.unseen_mass("uniqueterm") == jn.unseen_mass("uniqueterm") == 1.0
+    assert nat.score("uniqueterm", LIMIT) == [] and not nat.contains("u2")
+    assert nat.compile_all() == jn.compile_all()
+    for q in ("pump", "seal pump", "other words"):
+        assert nat.score(q, 0) == jn.score(q, 0), q
+
+
+def test_text_counters_count_each_text_once(texts):
+    """bm25.texts_native / bm25.texts_python count each text once, by where
+    it was tokenised: C++ for ASCII text, Python otherwise; the Python
+    index tokenises every text in Python."""
+    ascii_n = sum(t.isascii() for t in texts)
+    assert 0 < ascii_n < len(texts)
+    profiling.reset()
+    profiling.enable()
+    try:
+        nat = tnative.NativeLexicalIndex()
+        nat.add_chunks([f"c{i}" for i in range(len(texts))], texts, list(range(len(texts))))
+        nat.add_chunk("a", "plain ascii words", len(texts))
+        nat.add_chunk("b", "café naïve", len(texts) + 1)
+        assert profiling.snapshot()["counters"] == {"bm25.texts_native": ascii_n + 1,
+                                                    "bm25.texts_python": len(texts) - ascii_n + 1}
+        profiling.reset()
+        nat.add_chunks(["x"], ["only ascii"], [0])
+        LexicalIndex().add_chunks(["p", "q"], ["pump", "café"], [0, 1])
+        assert profiling.snapshot()["counters"] == {"bm25.texts_native": 1, "bm25.texts_python": 2}
+    finally:
+        profiling.disable()
+        profiling.reset()
+    nat.add_chunks(["y"], ["off now"], [1])
+    assert profiling.snapshot()["counters"] == {}
 
 
 def test_selection_and_no_silent_fallback(monkeypatch, tmp_path):
