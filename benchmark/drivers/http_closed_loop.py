@@ -15,6 +15,7 @@ them.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import os
 import subprocess
@@ -83,14 +84,22 @@ def make_inputs(cell, seed: int, seconds: float, device) -> Inputs:
                   gen.queries(vocab, cfg["queries"], n_warm, seed, stream=gen.WARM))
 
 
+def load_judge(cfg: dict, device):
+    """The reference's judge: `load(device)` of the module under
+    benchmark/reference/ that the configuration's judge names."""
+    name = cfg["judge"]["reference"]
+    if not name.isidentifier():
+        raise ValueError(f"the judge's reference {name!r} is no module name")
+    return importlib.import_module("reference." + name).load(device)
+
+
 def make_reference(x: Inputs, cfg: dict, device, judge: bool, fp8: bool = False,
                    corpus: Corpus = None) -> Reference:
     corpus = corpus or Corpus(rows=stored_rows(x.rows, cfg, device), bm25=Bm25(x.texts.ids, x.texts.offsets,
                                                                                len(x.vocab)),
                               texts=x.texts.texts, ids=x.ids, documents=x.documents, pages=x.pages)
     return Reference(corpus, models.load(asset("encoder.safetensors"), "encoder_config", device), x.tok,
-                     models.load(asset("reranker.safetensors"), "reranker_config", device) if judge else None,
-                     template(), fp8=fp8)
+                     load_judge(cfg, device) if judge else None, template(), fp8=fp8)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_process: float,
@@ -156,7 +165,7 @@ def _run(cell, seed, seconds, trace, device, t_process, fault, client_cores) -> 
     rec.setup_s = out["t_start"] - t_process
     keep = sample_indices(x.queries, [r[0] for r in out["records"]], traffic, seed)
     lane = lane_for(body, cfg["weights"], has_judge)
-    reference = make_reference(x, cfg, device, has_judge)
+    reference = make_reference(x, cfg, device, lane.use_reranker)
     judge_numbers(rec, reference, lane, x.queries, keep, out["bodies"])
     rec.flops = step_flops(rec, reference, lane, x.vocab, x.queries, live, dim)
     rec.info.update(live_rows=live, dim=dim, warmed=warmed)
@@ -288,9 +297,7 @@ def step_flops(rec: Record, reference: Reference, lane, vocab, queries, live: in
     lens = vocab.tokens(queries)
     if lane.use_reranker:
         judged = reference.judged_tokens
-        judge = reference.judge_model.cfg
-        per_prompt = work.transformer_flops(judge, round(sum(judged) / max(len(judged), 1)), causal=True,
-                                            head=int(judge["vocab_size"]))
+        per_prompt = reference.judge_model.prompt_flops(round(sum(judged) / max(len(judged), 1)), work)
     total = 0.0
     for i in rec.info.pop("done_idx"):
         total += 2.0 * live * dim + work.transformer_flops(enc.cfg, int(lens[i]) + 2 + prefix,

@@ -1,8 +1,9 @@
 """The system under test, built through its public API: the engine with
-its committed encoder and judge, and the server of `python -m
-rust_local_rag_tpu_torch` (AppContext, WorkerSupervisor, the hand-written
-HTTP/1.1 server) on a thread of this process, bound to a free loopback
-port. This is the one module of the benchmark that imports the program.
+its committed encoder and the judge its configuration names, and the
+server of `python -m rust_local_rag_tpu_torch` (AppContext,
+WorkerSupervisor, the hand-written HTTP/1.1 server) on a thread of this
+process, bound to a free loopback port. This is the one module of the
+benchmark that imports the program.
 """
 
 from __future__ import annotations
@@ -23,16 +24,38 @@ def apply_settings(env: dict) -> None:
         os.environ[k] = str(v)
 
 
+# the program's settings that choose its judge (config.get_rerank_model,
+# models/reranker.TransformerReranker.from_assets)
+JUDGE_SETTINGS = ("RAG_TPU_RERANK_MODEL", "OLLAMA_RERANK_MODEL", "RERANKER_WEIGHTS")
+
+
 def build_engine(cfg: dict, data_dir: str, device: torch.device):
-    """An empty engine of the configuration: the committed encoder, and the
-    committed judge when the configuration serves one."""
+    """An empty engine of the configuration, built as RagEngine.create
+    builds it: the committed encoder, and the judge that the program's
+    start-up path (build_default_reranker) builds when told to serve the
+    configuration's judge: RAG_TPU_RERANK_MODEL its "model", and
+    RERANKER_WEIGHTS its "weights" file (a path from the checkout's root)
+    where it names one. A configuration that names a judge the program
+    does not build is an error of the run."""
+    from harness.runner import ROOT
     from rust_local_rag_tpu_torch.engine.rag_engine import RagEngine
     from rust_local_rag_tpu_torch.models.embedding_service import build_default_service
-    from rust_local_rag_tpu_torch.models.reranker import TransformerReranker
-    from rust_local_rag_tpu_torch.models.reranker_service import RerankerService
+    from rust_local_rag_tpu_torch.models.reranker_service import build_default_reranker
 
+    for k in JUDGE_SETTINGS:
+        os.environ.pop(k, None)
+    named = cfg.get("judge")
+    if named:
+        os.environ["RAG_TPU_RERANK_MODEL"] = named["model"]
+        if named.get("weights"):
+            path = os.path.join(ROOT, named["weights"])
+            if not os.path.isfile(path):
+                raise FileNotFoundError(f"the configuration's judge weights {path} do not exist")
+            os.environ["RERANKER_WEIGHTS"] = path
     svc = build_default_service(device)
-    judge = RerankerService(TransformerReranker.from_assets(device=device)) if cfg.get("judge") else None
+    judge = build_default_reranker(device)
+    if named and judge is None:
+        raise RuntimeError(f"the configuration names the judge {named} and the program built none")
     return RagEngine(data_dir, svc, judge, device=device)
 
 

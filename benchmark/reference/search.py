@@ -44,7 +44,7 @@ The numbers a served answer gives (the worst over its results):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -107,8 +107,10 @@ class Corpus:
 
 
 class Reference:
-    def __init__(self, corpus: Corpus, encoder: models.Model, tokenizer: WordPieceTokenizer,
-                 judge: Optional[models.Model], template: str, fp8: bool = False):
+    def __init__(self, corpus: Corpus, encoder: models.Model, tokenizer: WordPieceTokenizer, judge,
+                 template: str, fp8: bool = False):
+        """`judge`: what the configuration's judge module loads (see
+        reference/judge_tpu_reranker.py), or None."""
         self.c = corpus
         self.encoder = encoder
         self.tok = tokenizer
@@ -117,10 +119,6 @@ class Reference:
         self.fp8 = fp8
         self.device = corpus.rows.device
         self.query_prefix = encoder.meta.get("query_prefix", "")
-        if judge is not None:
-            self.judge_len = int(judge.meta.get("train_seq_len", "192"))
-            yes, no = tokenizer.tokenize("yes"), tokenizer.tokenize("no")
-            self.yes_id, self.no_id = next((a, b) for a, b in zip(yes, no) if a != b)
         self.judged_tokens = []  # valid tokens of every prompt judged
 
     # ----- the models -----
@@ -148,11 +146,9 @@ class Reference:
         chunks = list(chunks)
         for lo in range(0, len(chunks), JUDGE_BATCH):
             part = chunks[lo:lo + JUDGE_BATCH]
-            ids, mask = self.tok.encode_batch_headtail([self.prompt(query, i) for i in part], self.judge_len)
-            self.judged_tokens.extend(mask.sum(axis=1).tolist())
-            yes, no = models.judge(self.judge_model, torch.from_numpy(ids).to(self.device),
-                                   torch.from_numpy(mask).to(self.device), self.yes_id, self.no_id, fp8=self.fp8)
-            for i, y, n in zip(part, yes.double().cpu().tolist(), no.double().cpu().tolist()):
+            yes, no, valid = self.judge_model.score([self.prompt(query, i) for i in part], fp8=self.fp8)
+            self.judged_tokens.extend(valid)
+            for i, y, n in zip(part, yes, no):
                 out[i] = (y, n, models.yes_probability(y, n))
         return out
 

@@ -6,6 +6,8 @@ import json
 import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -89,16 +91,62 @@ def test_configuration_files_state_their_cuts(manifest):
             assert key in cfg["corpus"] and key in cfg["published"]
 
 
+FIXTURE_JUDGE = '''"""A later judge: the weights beside this file, through the committed
+judge's arithmetic."""
+import os
+
+from reference.judge_tpu_reranker import Judge
+
+
+def load(device):
+    return Judge(os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixture_judge.safetensors"), device)
+'''
+
+RUN_IN_COPY = """
+import json, sys, time
+sys.path[:0] = [sys.argv[1] + "/benchmark", sys.argv[1]]
+import torch
+from harness import runner
+out, _ = runner.run(sys.argv[2], int(sys.argv[3]), 12.0, False, time.monotonic(), device=torch.device("cpu"),
+                    overrides=json.loads(sys.argv[4]))
+print(json.dumps(out))
+"""
+
+
+def _fixture_judge(path) -> None:
+    """A small judge of random weights, in the file format the program and
+    the reference read: unlike the committed judge in every answer."""
+    import torch
+
+    from rust_local_rag_tpu_torch.models.checkpoint import save_params
+    from rust_local_rag_tpu_torch.models.reranker import Reranker, RerankerConfig
+
+    cfg = RerankerConfig(vocab_size=8193, dim=64, depth=1, heads=2, ffn_dim=128)
+    save_params(Reranker(cfg, torch.Generator().manual_seed(7)), str(path),
+                {"reranker_config": cfg.to_json(), "train_seq_len": "96"})
+
+
 def test_a_later_cell_is_files_and_entries(manifest, tmp_path):
-    """A copy of the benchmark with one new configuration, traffic mix,
-    metrics and cell, made by adding files and entries only."""
+    """A copy of the benchmark with one new configuration, which names a new
+    judge (its reference module and its weights), traffic mix, metrics
+    and cells, made by adding files and entries only; the judged cell then
+    runs in the copy, correct, with both sides serving the new judge."""
+    from test_bench_runs import SEARCH, SEED
+
     root = tmp_path / "checkout"
     shutil.copytree(runner.BENCH_DIR, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
     before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
     bench = root / "benchmark"
     cfg = json.loads((bench / "configs" / "trec-covid-f32.json").read_text())
     cfg["name"] = "nq-f32"
+    cfg["judge"] = {"model": "fixture-judge", "weights": "benchmark/reference/fixture_judge.safetensors",
+                    "reference": "judge_fixture"}
     (bench / "configs" / "nq-f32.json").write_text(json.dumps(cfg))
+    (bench / "reference" / "judge_fixture.py").write_text(FIXTURE_JUDGE)
+    _fixture_judge(bench / "reference" / "fixture_judge.safetensors")
+    (bench / "limits" / "nq-default.json").write_text(json.dumps(
+        {"limits": {"score_gap": 0.002, "judge_gap": 0.007, "choice_gap": 0.008, "short_answers": 0,
+                    "failed_requests": 0}}))
     (bench / "traffic" / "hot-c16.json").write_text(json.dumps(
         {"driver": "http_closed_loop", "clients": 16, "body": {"top_k": 10, "diversity_factor": 0.0,
                                                              "use_reranker": False},
@@ -108,13 +156,14 @@ def test_a_later_cell_is_files_and_entries(manifest, tmp_path):
     m = json.loads(json.dumps(manifest))
     m["configs"].append({"name": "nq-f32", "source": "https://arxiv.org/abs/2104.08663",
                          "file": "benchmark/configs/nq-f32.json", "reduced": [], "why": "fixture"})
-    m["workloads"].append({"name": "nq-hot", "config": "nq-f32", "traffic": "hot-c16", "chips": 1,
-                           "why": "fixture"})
+    for name in ("nq-hot", "nq-default"):
+        m["workloads"].append({"name": name, "config": "nq-f32", "traffic": "hot-c16" if name == "nq-hot"
+                               else "default-c32", "chips": 1, "why": "fixture"})
     m["per_layer"].append({"name": "served_requests.search", "unit": "requests", "better": "higher",
                            "source": "host_clock", "layer": "server/batcher", "moves": "search_qps",
-                           "workloads": ["nq-hot"]})
+                           "workloads": ["nq-hot", "nq-default"]})
     m["end_to_end"].append({"name": "search_qps", "unit": "requests/s", "better": "higher", "bound": 0.25,
-                            "source": "host_clock", "workloads": ["nq-hot"]})
+                            "source": "host_clock", "workloads": ["nq-hot", "nq-default"]})
     (root / "BENCHMARK.json").write_text(json.dumps(m))
     cell = runner.load_cell("nq-hot", bench_dir=str(bench))
     assert cell.config["name"] == "nq-f32" and cell.traffic["clients"] == 16
@@ -122,5 +171,13 @@ def test_a_later_cell_is_files_and_entries(manifest, tmp_path):
     assert {x.name for x in cell.end_to_end} == {"search_qps", "setup_s"}
     old = runner.load_cell("marco-ingest", bench_dir=str(bench))
     assert "served_requests.search" not in [x.name for x in old.per_layer]
+    for name in ("rust_local_rag_tpu_torch", "rust_local_rag_tpu", "prompts"):  # the rest of a checkout
+        (root / name).symlink_to(os.path.join(ROOT, name))
+    done = subprocess.run([sys.executable, "-c", RUN_IN_COPY, str(root), "nq-default", str(SEED), json.dumps(SEARCH)],
+                          cwd=root, capture_output=True, text=True, timeout=900)
+    assert done.returncode == 0, done.stderr[-3000:]
+    out = json.loads(done.stdout.strip().splitlines()[-1])
+    assert out["correct"] and out["checks"]["judge_forwards"], out["compared"]
+    assert out["compared"]["judge_gap"]["value"] <= out["compared"]["judge_gap"]["limit"]
     after = {p: p.read_bytes() for p in before}
     assert after == before

@@ -4,8 +4,9 @@ is not (an answer altered where the engine produces it; rows written out
 of step with their chunks; half of each batch of chunks left out), and the control, the
 reference in float8 in the program's place, fails the cell's limits.
 
-The search driver runs as the cell covid-default, which BENCHMARK.json
-does not hold today: SEARCH_CELL adds it to a copy of the manifest."""
+The search driver runs as the cells marco-hot-b512 (the hot lane) and
+covid-default (the judged object lane), which BENCHMARK.json does not hold
+today: search_manifest adds them to a copy of the manifest."""
 
 import json
 import time
@@ -24,28 +25,51 @@ SEARCH = {
                         "RAG_TPU_PIPELINE_DEPTH": "2", "RAG_TPU_FUSED_ATTN": "0"},
     "traffic.clients": 2, "traffic.sample": 2, "traffic.max_rate": 200,
 }
+# marco-hot-b512 at a size a test can hold: its own traffic (hot-c512's body), a small bf16 slab
+HOT = {
+    "config.corpus": {"documents": 2500, "mean_words": 55.98, "length_sigma": 0.3, "min_words": 8,
+                      "max_words": 120, "zipf_s": 1.0, "heaps_k": 44, "heaps_beta": 0.49},
+    "config.settings": {"RAG_TPU_CORPUS_DTYPE": "bf16", "RAG_TPU_BATCH_MAX": "8", "RAG_TPU_BATCH_WINDOW_MS": "3",
+                        "RAG_TPU_PIPELINE_DEPTH": "2", "RAG_TPU_FUSED_ATTN": "0"},
+    "traffic.clients": 8, "traffic.sample": 8, "traffic.max_rate": 300,
+}
 INGEST = {"traffic.max_rate": 300, "traffic.passages_per_document": {"mean": 6.0, "cycle": 64},
           "traffic.sample_rows": 12, "traffic.sample_queries": 4}
+SIZES = {"covid-default": SEARCH, "marco-hot-b512": HOT}
+
+
+def report(m: dict, kind: str, entry: dict, cell: str) -> None:
+    """Let `cell` report the metric `entry` names: add the cell to the
+    manifest's entry of that name, or add the entry."""
+    for e in m[kind]:
+        if e["name"] == entry["name"]:
+            e.setdefault("workloads", []).append(cell)
+            return
+    m[kind].append(dict(entry, workloads=[cell]))
 
 
 def search_manifest() -> dict:
-    """BENCHMARK.json with the search cell covid-default and its metrics."""
+    """BENCHMARK.json with the search cells covid-default and
+    marco-hot-b512 and their metrics."""
     m = runner.read_manifest()
     m["configs"].append({"name": "trec-covid-f32", "source": "https://arxiv.org/abs/2104.08663",
                          "file": "benchmark/configs/trec-covid-f32.json", "reduced": [], "why": "search"})
     m["workloads"].append({"name": "covid-default", "config": "trec-covid-f32", "traffic": "default-c32",
                            "chips": 1, "why": "search"})
-    m["end_to_end"].append({"name": "search_qps", "unit": "requests/s", "better": "higher", "bound": 0.25,
-                            "source": "host_clock", "workloads": ["covid-default"]})
-    for name in ("latency_p95_ms", "lexical_ms_per_query", "query_encoder_ms_per_batch", "queries_per_launch",
-                 "judge_device_ms_per_query", "score_segmax_roofline", "device_idle_share", "step_mfu"):
-        m["per_layer"].append({"name": name + ".search", "unit": "1", "better": "lower", "source": "host_clock",
-                               "layer": "search", "moves": "search_qps", "workloads": ["covid-default"]})
+    m["workloads"].append({"name": "marco-hot-b512", "config": "msmarco-passage-bf16", "traffic": "hot-c512",
+                           "chips": 1, "why": "search"})
+    for cell in ("covid-default", "marco-hot-b512"):
+        report(m, "end_to_end", {"name": "search_qps", "unit": "requests/s", "better": "higher", "bound": 0.25,
+                                 "source": "host_clock"}, cell)
+        for name in ("latency_p95_ms", "lexical_ms_per_query", "query_encoder_ms_per_batch", "queries_per_launch",
+                     "judge_device_ms_per_query", "score_segmax_roofline", "device_idle_share", "step_mfu"):
+            report(m, "per_layer", {"name": name + ".search", "unit": "1", "better": "lower",
+                                    "source": "host_clock", "layer": "search", "moves": "search_qps"}, cell)
     return m
 
 
 def _run(workload, overrides, seconds, fault=None, trace=False):
-    manifest = search_manifest() if workload == "covid-default" else None
+    manifest = None if workload == "marco-ingest" else search_manifest()
     out, lines = runner.run(workload, SEED, seconds, trace, time.monotonic(), device=CPU, overrides=overrides,
                             fault=fault, manifest=manifest)
     json.dumps(out)
@@ -53,9 +77,10 @@ def _run(workload, overrides, seconds, fault=None, trace=False):
     return out
 
 
+@pytest.mark.parametrize("cell", ["covid-default", "marco-hot-b512"])
 @pytest.mark.parametrize("fault", [None, "answer"])
-def test_search_runs(fault):
-    out = _run("covid-default", SEARCH, 12.0, fault)
+def test_search_runs(fault, cell):
+    out = _run(cell, SIZES[cell], 12.0, fault)
     compared = out["compared"]
     assert out["attempted"] > 0 and out["failed"] == 0
     assert compared["short_answers"]["value"] == 0, compared  # the sampled answers came
@@ -92,6 +117,13 @@ def test_control_fails_the_limits():
     cell.traffic["sample"], cell.traffic["max_rate"] = 4, 5
     numbers = control.search_control(cell, SEED, 4.0, CPU)
     assert any(v > cell.limits[k] for k, v in numbers.items()), numbers
+    hot = runner.load_cell("marco-hot-b512", search_manifest())
+    for key, value in HOT.items():
+        section, _, field = key.partition(".")
+        getattr(hot, section)[field] = value
+    hot.traffic["sample"], hot.traffic["max_rate"] = 4, 5
+    numbers = control.search_control(hot, SEED, 4.0, CPU)
+    assert numbers["score_gap"] > hot.limits["score_gap"], numbers
     ing = runner.load_cell("marco-ingest")
     ing.traffic["sample_rows"], ing.traffic["max_rate"] = 12, 100
     rows = control.ingest_control(ing, SEED, 4.0, CPU)

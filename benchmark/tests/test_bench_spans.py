@@ -1,8 +1,8 @@
 """The readers of the program's own spans (harness/spans.py and the metrics
 that read it) in whole runs on the CPU: a traced marco-ingest run reports
 the eight ingest metrics, an untraced run leaves the program's tracer off,
-and a traced search run reports the four search readers, which
-BENCHMARK.json does not list while no search cell exists."""
+and a traced search run of covid-default, which BENCHMARK.json does not
+hold, reports the four search readers."""
 
 import json
 import math
@@ -12,7 +12,7 @@ import torch
 
 from harness import runner
 from rust_local_rag_tpu_torch.utils import profiling
-from test_bench_runs import INGEST, SEARCH, SEED, search_manifest
+from test_bench_runs import INGEST, SEARCH, SEED, report, search_manifest
 
 CPU = torch.device("cpu")
 INGEST_METRICS = ("tokenize_ms_per_chunk.ingest", "encoder_enqueue_ms_per_chunk.ingest",
@@ -55,8 +55,8 @@ def test_untraced_run_leaves_the_tracer_off():
 def test_traced_search_reports_the_search_readers():
     manifest = search_manifest()
     for name in SEARCH_METRICS:
-        manifest["per_layer"].append({"name": name, "unit": "ms", "better": "lower", "source": "program_span",
-                                      "layer": "search", "moves": "search_qps", "workloads": ["covid-default"]})
+        report(manifest, "per_layer", {"name": name, "unit": "ms", "better": "lower", "source": "program_span",
+                                       "layer": "search", "moves": "search_qps"}, "covid-default")
     out = _run("covid-default", SEARCH, 12.0, trace=True, manifest=manifest)
     for name in SEARCH_METRICS:
         value = out["metrics"][name]["value"]
