@@ -99,7 +99,7 @@ def make_reference(x: Inputs, cfg: dict, device, judge: bool, fp8: bool = False,
                                                                                len(x.vocab)),
                               texts=x.texts.texts, ids=x.ids, documents=x.documents, pages=x.pages)
     return Reference(corpus, models.load(asset("encoder.safetensors"), "encoder_config", device), x.tok,
-                     load_judge(cfg, device) if judge else None, template(), fp8=fp8)
+                     load_judge(cfg, device) if judge else None, template(), fp8=fp8, ties=cfg.get("ties"))
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_process: float,
@@ -260,7 +260,7 @@ def judge_numbers(rec: Record, reference: Reference, lane, queries, keep, bodies
     q = reference.embed_queries([queries.texts[i] for i in keep])
     worst = {"score_gap": 0.0, "choice_gap": 0.0, "short_answers": 0.0}
     if lane.use_reranker:
-        worst["judge_gap"] = 0.0
+        worst["judge_gap"] = worst["blend_gap"] = 0.0
     for j, i in enumerate(keep):
         raw = bodies.get(str(i))
         try:

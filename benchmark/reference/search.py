@@ -29,10 +29,26 @@ served value is measured against the nearest allowed one, and a served
 choice against the best lowest value among the certain candidates it
 passed over.
 
+Rounding ties too, where the configuration states them (its `ties`: how
+far the program at the deployment's stated precision, rounding in
+another order, may move a dense score, `dense_score`, and the judge's
+yes-over-no logit, `judge_logit`, from this reference's). A chunk within
+the dense tie of the judged set's edge may fall on either side of it,
+and the judge's weight then carries it into or out of the answer. Each
+judged chunk's yes-probability, and with them the blend's normaliser,
+may take any value that a logit difference within the judge's tie of the
+reference's gives: a served blended score is held to the range of the
+values those give, and a served choice to the lowest of them. Without
+`ties` every comparison is exact up to the ties of the definition.
+
 The numbers a served answer gives (the worst over its results):
-  * score_gap: |served - reference| of score, initial_score,
-    embedding_score and lexical_score;
-  * judge_gap: |served - reference| of yes_logprob and no_logprob;
+  * score_gap: |served - reference| of initial_score, embedding_score,
+    lexical_score and, without the judge, score;
+  * with the judge, blend_gap: how far the served blended score lies
+    from the values allowed (outside their range, where the judge has a
+    tie: its rounding, magnified by 1 / the judged set's best
+    yes-probability, reaches the blend, so it has a limit of its own),
+    and judge_gap: |served - reference| of yes_logprob and no_logprob;
   * choice_gap: at each step, the best objective among the certain
     candidates the answer passed over minus the objective of the one it
     took (0 for the reference's own choice), and how far a served
@@ -108,15 +124,19 @@ class Corpus:
 
 class Reference:
     def __init__(self, corpus: Corpus, encoder: models.Model, tokenizer: WordPieceTokenizer, judge,
-                 template: str, fp8: bool = False):
+                 template: str, fp8: bool = False, ties: dict = None):
         """`judge`: what the configuration's judge module loads (see
-        reference/judge_tpu_reranker.py), or None."""
+        reference/judge_tpu_reranker.py), or None; `ties`: the
+        configuration's (see the module docstring)."""
         self.c = corpus
         self.encoder = encoder
         self.tok = tokenizer
         self.judge_model = judge
         self.template = template
         self.fp8 = fp8
+        ties = ties or {}
+        self.dense_tie = float(ties.get("dense_score", 0.0))
+        self.logit_tie = float(ties.get("judge_logit", 0.0))
         self.device = corpus.rows.device
         self.query_prefix = encoder.meta.get("query_prefix", "")
         self.judged_tokens = []  # valid tokens of every prompt judged
@@ -154,11 +174,13 @@ class Reference:
 
     # ----- the definition -----
 
-    def _plan(self, query: str, terms, q: torch.Tensor, lane: Lane) -> dict:
+    def _plan(self, query: str, terms, q: torch.Tensor, lane: Lane, tie: bool = False) -> dict:
         """Every chunk's e, and lexn and c at their lowest and highest
         allowed values; with the judge, the chunks that may be in the 3 *
         pool the system judges (`possible`), those that are in it whatever
-        the ties (`certain`), and each possible chunk's judge reading."""
+        the ties (`certain`), and each possible chunk's judge reading (with
+        `tie`, the judged set's edge widened by the dense tie and the
+        readings allowed to move by the judge's logit tie)."""
         e = (self.c.rows64 @ q).cpu().numpy()
         bm = self.c.bm25.scores(terms)
         limit = 5 * lane.pool
@@ -180,18 +202,38 @@ class Reference:
         n_init = min(len(e), 3 * lane.pool)
         kth = lambda x: float(np.partition(x, len(x) - n_init)[len(x) - n_init])  # noqa: E731
         t_lo, t_hi = kth(p["c_lo"]), kth(p["c_hi"])
-        p["t_lo"] = t_lo
         p["possible"] = np.flatnonzero(p["c_hi"] >= t_lo).tolist()
         p["certain"] = np.flatnonzero(p["c_lo"] >= t_hi).tolist()
+        # a chunk's initial score and the edge's each may round by w_e * the dense tie: the judged set is then
+        # certain of a chunk only above the best of the rest by twice that
+        edge = 2 * lane.w_embedding * self.dense_tie if tie else 0.0
+        if edge and len(e) > n_init:
+            t_lo -= edge
+            rest = float(np.partition(p["c_hi"], len(e) - n_init - 1)[len(e) - n_init - 1])
+            p["possible"] = np.flatnonzero(p["c_hi"] >= t_lo).tolist()
+            # (where every candidate lies that close to the rest, the ties at the edge alone decide)
+            p["certain"] = np.flatnonzero(p["c_lo"] > rest + edge).tolist() or p["certain"]
+        p["t_lo"] = t_lo
         p["judged"] = {int(i): v for i, v in self.judge(query, p["possible"]).items()}
+        p["tie"] = self.logit_tie if tie else 0.0
         # blend normalisers: the best yes-probability and initial score of
-        # the judged set, which ties at its edge can change
+        # the judged set, which ties at its edge (and the judge's) can change
         top_rr = max(p["judged"][i][2] for i in p["certain"])
-        p["norm_rr"] = sorted({max(r, F32_EPSILON) for r in
-                               [top_rr] + [p["judged"][i][2] for i in p["possible"] if p["judged"][i][2] > top_rr]})
+        norm = [top_rr] + [p["judged"][i][2] for i in p["possible"] if p["judged"][i][2] > top_rr]
+        if p["tie"]:
+            norm += [max(self._rrs(p, i)[0] for i in p["certain"]), max(self._rrs(p, i)[-1] for i in p["possible"])]
+        p["norm_rr"] = sorted({max(r, F32_EPSILON) for r in norm})
         p["norm_c"] = sorted({max(float(p["c_lo"][p["certain"]].max()), F32_EPSILON),
                               max(float(p["c_hi"][p["possible"]].max()), F32_EPSILON)})
         return p
+
+    @staticmethod
+    def _rrs(p: dict, i: int) -> List[float]:
+        """A judged chunk's yes-probability, at the ends of the judge's tie
+        where the plan has one."""
+        y, n, rr = p["judged"][i]
+        t = p.get("tie", 0.0)
+        return [models.yes_probability(y - t, n), rr, models.yes_probability(y + t, n)] if t else [rr]
 
     def _values(self, p: dict, lane: Lane, i: int, query: str) -> List[float]:
         """The values a chunk's rel (s with the judge, else c) may take."""
@@ -200,9 +242,8 @@ class Reference:
             return sorted(cs)
         if i not in p["judged"]:
             p["judged"].update(self.judge(query, [i]))
-        rr = p["judged"][i][2]
         return sorted({lane.w_reranker * rr / n + lane.w_initial * c / m
-                       for n in p["norm_rr"] for m in p["norm_c"] for c in cs})
+                       for rr in self._rrs(p, i) for n in p["norm_rr"] for m in p["norm_c"] for c in cs})
 
     def _pools(self, p: dict, lane: Lane, query: str):
         """(the pool the answer may be drawn from, the chunks in it whatever
@@ -257,11 +298,13 @@ class Reference:
 
     def judge_answer(self, query: str, terms, q: torch.Tensor, lane: Lane, served: List[dict]) -> dict:
         """The numbers of one served answer (see the module docstring)."""
-        p = self._plan(query, terms, q, lane)
+        p = self._plan(query, terms, q, lane, tie=True)
         possible, certain, edge = self._pools(p, lane, query)
         expect = min(lane.top_k, len(certain) if lane.use_reranker else len(p["possible"]))
         out = {"score_gap": 0.0, "judge_gap": 0.0, "choice_gap": 0.0,
                "short": 1.0 if len(served) < expect else 0.0, "where": None}
+        if lane.use_reranker:
+            out["blend_gap"] = 0.0
         idx = []
         for r in served:
             i = self.c.index.get(r.get("chunk_id"))
@@ -276,13 +319,21 @@ class Reference:
             """The allowed value nearest to v."""
             return min(allowed, key=lambda a: abs(v - a))
 
-        rel = [near(r["score"], self._values(p, lane, i, query)) for r, i in zip(served, idx)]
+        def within(v, allowed):
+            """v held to the range of the allowed values (the judge's tie
+            makes a range of them)."""
+            return min(max(v, allowed[0]), allowed[-1]) if p.get("tie") else near(v, allowed)
+
+        rel = [within(r["score"], self._values(p, lane, i, query)) for r, i in zip(served, idx)]
         for r, i, v in zip(served, idx, rel):
             lex = near(r["lexical_score"], [p["lex_lo"][i], p["lex_hi"][i]])
-            gaps = [abs(r["embedding_score"] - p["e"][i]), abs(r["lexical_score"] - lex), abs(r["score"] - v)]
+            gaps = [abs(r["embedding_score"] - p["e"][i]), abs(r["lexical_score"] - lex)]
             if "initial_score" in r:
                 gaps.append(abs(r["initial_score"] - near(r["initial_score"], [p["c_lo"][i], p["c_hi"][i]])))
-            if lane.use_reranker:
+            if not lane.use_reranker:
+                gaps.append(abs(r["score"] - v))
+            else:
+                out["blend_gap"] = max(out["blend_gap"], abs(r["score"] - v))
                 y, n, _ = p["judged"][i]
                 out["judge_gap"] = max(out["judge_gap"], abs(r["yes_logprob"] - y), abs(r["no_logprob"] - n))
                 # a result from outside the pool the system may judge, or may draw from

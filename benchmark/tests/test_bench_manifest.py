@@ -145,8 +145,8 @@ def test_a_later_cell_is_files_and_entries(manifest, tmp_path):
     (bench / "reference" / "judge_fixture.py").write_text(FIXTURE_JUDGE)
     _fixture_judge(bench / "reference" / "fixture_judge.safetensors")
     (bench / "limits" / "nq-default.json").write_text(json.dumps(
-        {"limits": {"score_gap": 0.002, "judge_gap": 0.007, "choice_gap": 0.008, "short_answers": 0,
-                    "failed_requests": 0}}))
+        {"limits": {"score_gap": 0.002, "judge_gap": 0.007, "blend_gap": 0.002, "choice_gap": 0.008,
+                    "short_answers": 0, "failed_requests": 0}}))
     (bench / "traffic" / "hot-c16.json").write_text(json.dumps(
         {"driver": "http_closed_loop", "clients": 16, "body": {"top_k": 10, "diversity_factor": 0.0,
                                                              "use_reranker": False},

@@ -152,7 +152,7 @@ def test_judged_blend_and_mmr_by_hand():
     obj = {j: 0.5 * s[j] - 0.5 * max(0.0, sims[j, first]) for j in range(3) if j != first}
     assert got[1]["chunk_id"] == f"c{max(obj, key=obj.get)}"
     assert ref.judge_answer("", [0], q, lane, got) == {"score_gap": 0.0, "judge_gap": 0.0, "choice_gap": 0.0,
-                                                       "short": 0.0, "where": None}
+                                                       "blend_gap": 0.0, "short": 0.0, "where": None}
     no_mmr = [got[0], next(x for x in ref.answer("", [0], q, Lane(2, 0.0, True, 0.7, 0.3, 0.7, 0.3))
                            if x["chunk_id"] != got[0]["chunk_id"])]
     if no_mmr[1]["chunk_id"] != got[1]["chunk_id"]:

@@ -4,9 +4,11 @@ is not (an answer altered where the engine produces it; rows written out
 of step with their chunks; half of each batch of chunks left out), and the control, the
 reference in float8 in the program's place, fails the cell's limits.
 
-The search driver runs as the cells marco-hot-b512 (the hot lane) and
-covid-default (the judged object lane), which BENCHMARK.json does not hold
-today: search_manifest adds them to a copy of the manifest."""
+The search driver runs as the cells marco-hot-b512 (the hot lane),
+covid-default and marco-default-c32 (the judged object lane, at f32 with
+no ties and at bf16 with the configuration's ties), which BENCHMARK.json
+does not hold today: search_manifest adds them to a copy of the
+manifest."""
 
 import json
 import time
@@ -33,9 +35,18 @@ HOT = {
                         "RAG_TPU_PIPELINE_DEPTH": "2", "RAG_TPU_FUSED_ATTN": "0"},
     "traffic.clients": 8, "traffic.sample": 8, "traffic.max_rate": 300,
 }
+# marco-default-c32 at a size a test can hold: its own traffic (default-c32's body), a small bf16 slab
+DEFAULT = {
+    "config.corpus": {"documents": 2500, "mean_words": 55.98, "length_sigma": 0.3, "min_words": 8,
+                      "max_words": 120, "zipf_s": 1.0, "heaps_k": 44, "heaps_beta": 0.49},
+    "config.settings": {"RAG_TPU_CORPUS_DTYPE": "bf16", "RAG_TPU_BATCH_MAX": "4", "RAG_TPU_BATCH_WINDOW_MS": "3",
+                        "RAG_TPU_PIPELINE_DEPTH": "2", "RAG_TPU_FUSED_ATTN": "0"},
+    "traffic.clients": 2, "traffic.sample": 3, "traffic.max_rate": 200,
+}
 INGEST = {"traffic.max_rate": 300, "traffic.passages_per_document": {"mean": 6.0, "cycle": 64},
           "traffic.sample_rows": 12, "traffic.sample_queries": 4}
-SIZES = {"covid-default": SEARCH, "marco-hot-b512": HOT}
+SIZES = {"covid-default": SEARCH, "marco-hot-b512": HOT, "marco-default-c32": DEFAULT}
+SEARCH_CELLS = list(SIZES)
 
 
 def report(m: dict, kind: str, entry: dict, cell: str) -> None:
@@ -49,8 +60,8 @@ def report(m: dict, kind: str, entry: dict, cell: str) -> None:
 
 
 def search_manifest() -> dict:
-    """BENCHMARK.json with the search cells covid-default and
-    marco-hot-b512 and their metrics."""
+    """BENCHMARK.json with the search cells covid-default,
+    marco-hot-b512 and marco-default-c32 and their metrics."""
     m = runner.read_manifest()
     m["configs"].append({"name": "trec-covid-f32", "source": "https://arxiv.org/abs/2104.08663",
                          "file": "benchmark/configs/trec-covid-f32.json", "reduced": [], "why": "search"})
@@ -58,7 +69,9 @@ def search_manifest() -> dict:
                            "chips": 1, "why": "search"})
     m["workloads"].append({"name": "marco-hot-b512", "config": "msmarco-passage-bf16", "traffic": "hot-c512",
                            "chips": 1, "why": "search"})
-    for cell in ("covid-default", "marco-hot-b512"):
+    m["workloads"].append({"name": "marco-default-c32", "config": "msmarco-passage-bf16", "traffic": "default-c32",
+                           "chips": 1, "why": "search"})
+    for cell in SEARCH_CELLS:
         report(m, "end_to_end", {"name": "search_qps", "unit": "requests/s", "better": "higher", "bound": 0.25,
                                  "source": "host_clock"}, cell)
         for name in ("latency_p95_ms", "lexical_ms_per_query", "query_encoder_ms_per_batch", "queries_per_launch",
@@ -77,7 +90,7 @@ def _run(workload, overrides, seconds, fault=None, trace=False):
     return out
 
 
-@pytest.mark.parametrize("cell", ["covid-default", "marco-hot-b512"])
+@pytest.mark.parametrize("cell", SEARCH_CELLS)
 @pytest.mark.parametrize("fault", [None, "answer"])
 def test_search_runs(fault, cell):
     out = _run(cell, SIZES[cell], 12.0, fault)
@@ -124,6 +137,15 @@ def test_control_fails_the_limits():
     hot.traffic["sample"], hot.traffic["max_rate"] = 4, 5
     numbers = control.search_control(hot, SEED, 4.0, CPU)
     assert numbers["score_gap"] > hot.limits["score_gap"], numbers
+    judged = runner.load_cell("marco-default-c32", search_manifest())
+    for key, value in DEFAULT.items():
+        section, _, field = key.partition(".")
+        getattr(judged, section)[field] = value
+    judged.traffic["sample"], judged.traffic["max_rate"] = 4, 5
+    numbers = control.search_control(judged, SEED, 4.0, CPU)
+    assert set(numbers) == set(judged.limits)
+    assert numbers["judge_gap"] > judged.limits["judge_gap"], numbers
+    assert numbers["score_gap"] > judged.limits["score_gap"], numbers
     ing = runner.load_cell("marco-ingest")
     ing.traffic["sample_rows"], ing.traffic["max_rate"] = 12, 100
     rows = control.ingest_control(ing, SEED, 4.0, CPU)
